@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of the Xel-FPGAs reproduction.
+
+A second package beside the JAX reference (``src/repro``): the same
+approximate-accelerator labeling and surrogate-guided DSE, with the
+population LUT gather and the approximate matmuls as hand-written CUDA
+kernels for Hopper (``csrc/``, built on first use by ``_build``).  It
+imports torch, numpy and scipy only — nothing of JAX and nothing of the
+JAX package, whose numpy modules it carries as its own copies under the
+same relative paths.
+
+Entry points (``core.dse.run_dse``, ``core.dse.default_labeler``,
+``core.features.synth.label_variants``, ``Accelerator.qor_batch`` /
+``simulate_batch``) take ``device``, default ``"cuda"``, and raise when
+no GPU is present unless the caller passes ``device="cpu"``.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,70 @@
+"""Carry circuit state across from the JAX package as plain numpy.
+
+The port imports nothing of the JAX package; state crosses as numpy
+arrays.  ``library_arrays`` dumps any circuit library (the port's, or
+one with the same duck-typed ``Circuit`` attributes) to numpy, so two
+libraries can be compared array by array; ``spec_from_arrays`` builds
+the port's ``ApproxSpec`` from the arrays of a spec made elsewhere, so
+both packages' matmuls can be fed the same spec.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from .kernels.approx_matmul import ApproxSpec
+
+__all__ = ["spec_from_arrays", "library_arrays"]
+
+# fixed adder probe: 16-bit operand pairs covering carry-chain corners
+_ADD_PROBE = (np.arange(0, 1 << 16, 257, dtype=np.int64),
+              np.arange((1 << 16) - 1, -1, -257, dtype=np.int64))
+
+
+def spec_from_arrays(
+    name: str,
+    signed: bool,
+    rank: int,
+    u: np.ndarray,
+    v: np.ndarray,
+    table: Optional[np.ndarray],
+    trunc_bits: int,
+) -> ApproxSpec:
+    """The port's ``ApproxSpec`` from a spec's numpy fields."""
+    u = np.ascontiguousarray(u, dtype=np.float32)
+    v = np.ascontiguousarray(v, dtype=np.float32)
+    if u.shape != (256, int(rank)) or v.shape != (256, int(rank)):
+        raise ValueError(f"u, v must be (256, {rank}), got {u.shape}, {v.shape}")
+    if table is not None:
+        table = np.ascontiguousarray(table, dtype=np.int32)
+        if table.shape != (256, 256):
+            raise ValueError(f"table must be (256, 256), got {table.shape}")
+    return ApproxSpec(name=str(name), signed=bool(signed), rank=int(rank),
+                      u=u, v=v, table=table, trunc_bits=int(trunc_bits))
+
+
+def library_arrays(lib) -> Dict[str, np.ndarray]:
+    """``{"<circuit>/<field>": array}`` for every circuit of ``lib``:
+    multipliers give their product ``table`` and the ``u``/``v`` factors
+    at their deployment rank; adders give their outputs on a fixed
+    operand probe.  Every circuit also gives ``meta``: (kind index,
+    deploy rank, native width or -1, is_exact)."""
+    kinds = ("mul8u", "mul8s", "add16")
+    out: Dict[str, np.ndarray] = {}
+    for c in lib.circuits:
+        native = -1 if c.native_width is None else int(c.native_width)
+        out[f"{c.name}/meta"] = np.array(
+            [kinds.index(c.kind), int(c.deploy_rank), native, int(c.is_exact)],
+            dtype=np.int64)
+        if c.kind == "add16":
+            out[f"{c.name}/probe"] = np.asarray(
+                c.fn(*_ADD_PROBE), dtype=np.int64)
+            continue
+        out[f"{c.name}/table"] = np.asarray(c.table, dtype=np.int64)
+        if c.deploy_rank:
+            f = c.factors(c.deploy_rank)
+            out[f"{c.name}/u"] = np.asarray(f.u, dtype=np.float32)
+            out[f"{c.name}/v"] = np.asarray(f.v, dtype=np.float32)
+    return out

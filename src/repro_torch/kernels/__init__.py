@@ -1,0 +1,9 @@
+# Hand-written Hopper kernels of the port, each beside its plain PyTorch
+# version (ref.py) and its dispatching wrapper (ops.py):
+#   population_lut — the batched behavioural sim's population LUT gather
+#                    (every QoR label goes through it)
+#   approx_matmul  — rank-k deployment matmul and the bit-exact
+#                    LUT matmul of one circuit choice
+from . import approx_matmul, population_lut
+
+__all__ = ["approx_matmul", "population_lut"]

@@ -1,0 +1,254 @@
+"""Approximate matmul of one circuit choice, on its two routes.
+
+``ApproxSpec`` packages everything a deployment site needs about one
+circuit choice: the rank-k factors (deployment route), the exhaustive
+table (behavioural route) and the signedness.  ``grouped_matmul``
+implements the per-slot assignment semantics of the DSE: the K
+(contraction) axis is partitioned into slot groups, each with its own
+circuit.
+
+The two kernel wrappers dispatch on the tensor's device: on a CUDA
+tensor ``rank_k_matmul_kernel`` launches ``csrc/rank_k.cu`` and
+``lut_matmul_kernel`` launches ``csrc/lut_matmul.cu`` (or raise); on a
+CPU tensor they run the plain versions in ``ref``.
+
+Also provides the symmetric int8 quantization helpers that put float
+tensors into the 8-bit circuit domain.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ... import _build
+from . import ref
+
+__all__ = [
+    "ApproxSpec",
+    "from_circuit",
+    "approx_matmul",
+    "grouped_matmul",
+    "rank_k_matmul_kernel",
+    "lut_matmul_kernel",
+    "quantize_sym",
+    "dequantize",
+]
+
+
+@dataclass(frozen=True)
+class ApproxSpec:
+    """Deployment data of one circuit at one chosen rank.
+
+    Truncation-family circuits carry ``trunc_bits`` > 0 and rank 0: they
+    deploy NATIVELY as a reduced-width integer matmul (operands masked to
+    8 - trunc_bits bits).  Everything else deploys as an int8 base
+    matmul + ``rank`` correction matmuls."""
+
+    name: str
+    signed: bool
+    rank: int
+    u: np.ndarray          # (256, rank) f32
+    v: np.ndarray          # (256, rank) f32
+    table: Optional[np.ndarray] = None   # (256,256) i32, behavioural route
+    trunc_bits: int = 0    # native reduced-width deployment
+
+    @property
+    def width(self) -> int:
+        return 8 - self.trunc_bits
+
+    @property
+    def is_exact(self) -> bool:
+        return self.rank == 0 and self.name.endswith("_exact")
+
+
+def from_circuit(circuit, rank: Optional[int] = None) -> ApproxSpec:
+    """Build an ApproxSpec from a ``core.acl.library.Circuit``.
+
+    rank=None uses the circuit's faithful deployment rank (0 for exact
+    and natively-truncating circuits, the 99%-energy effective rank
+    otherwise); an explicit rank is the beyond-paper DSE axis.
+    """
+    if circuit.kind == "add16":
+        raise ValueError("adders do not deploy as matmul corrections")
+    native = circuit.native_width is not None
+    r = circuit.deploy_rank if rank is None else (0 if native else int(rank))
+    if circuit.is_exact or native or r == 0:
+        u = np.zeros((256, 0), np.float32)
+        v = np.zeros((256, 0), np.float32)
+    else:
+        f = circuit.factors(r)
+        u, v = f.u, f.v
+    return ApproxSpec(
+        name=circuit.name,
+        signed=circuit.signed,
+        rank=u.shape[1],
+        u=u,
+        v=v,
+        table=circuit.table.astype(np.int32),
+        trunc_bits=circuit.trunc_bits if native else 0,
+    )
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(
+            f"need (m, k) @ (k, n), got {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+
+
+def _check_cuda(x, w, signed: bool, *tables) -> int:
+    """Device-side preconditions of the two matmul kernels; returns the
+    table index offset."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for t, nm in ((x, "x"), (w, "w")):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{nm} must be contiguous int32, got {t.dtype}")
+    for t in tables:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("tables must be contiguous and on x's device")
+    m, k = x.shape
+    n = w.shape[1]
+    if max(m, n, k) >= 2 ** 31 or (m + 15) // 16 > 65535:
+        raise ValueError(f"shape ({m}, {k}) @ ({k}, {n}) too large")
+    return 128 if signed else 0
+
+
+def rank_k_matmul_kernel(
+    x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+    *, signed: bool = False,
+) -> torch.Tensor:
+    """(m, n) float32 ``x @ w + sum_r U[x] @ V[w]``."""
+    _check_operands(x, w)
+    if u.shape != v.shape or u.dim() != 2 or u.shape[0] != 256:
+        raise ValueError(f"u, v must be (256, r), got {tuple(u.shape)}, "
+                         f"{tuple(v.shape)}")
+    if x.device.type == "cpu":
+        return ref.rank_k_matmul(x, w, u, v, signed=signed)
+    if u.dtype != torch.float32 or v.dtype != torch.float32:
+        raise ValueError("u, v must be float32")
+    r = u.shape[1]
+    if 2 * 256 * r * 4 + 2 * 16 * 17 * 4 > 232448:
+        raise ValueError(f"rank {r} too large for the U/V shared-memory stage")
+    off = _check_cuda(x, w, signed, u, v)
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.call("rank_k", x.device, x.data_ptr(), w.data_ptr(), u.data_ptr(),
+                v.data_ptr(), out.data_ptr(), m, n, k, r, off)
+    return out
+
+
+def lut_matmul_kernel(
+    x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
+    *, signed: bool = False,
+) -> torch.Tensor:
+    """(m, n) int32 ``out[i, j] = sum_k T[x[i,k], w[k,j]]``, exact."""
+    _check_operands(x, w)
+    if tuple(table.shape) != (256, 256):
+        raise ValueError(f"table must be (256, 256), got {tuple(table.shape)}")
+    if x.device.type == "cpu":
+        return ref.lut_matmul(x, w, table, signed=signed)
+    if table.dtype != torch.int32:
+        raise ValueError("table must be int32")
+    if x.shape[1] > 33000:
+        raise ValueError("k too large for an exact int32 sum")
+    off = _check_cuda(x, w, signed, table)
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.call("lut_matmul", x.device, x.data_ptr(), w.data_ptr(),
+                table.data_ptr(), out.data_ptr(), m, n, k, off)
+    return out
+
+
+# --- the two routes -----------------------------------------------------------
+
+def _mask(t: torch.Tensor, trunc: int) -> torch.Tensor:
+    # native reduced-width deployment: the truncation IS the circuit.
+    # Sign-magnitude masking matches the behavioural mul8s wrapper.
+    return torch.sign(t) * ((torch.abs(t) >> trunc) << trunc)
+
+
+def approx_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    spec: ApproxSpec,
+    *,
+    path: str = "mxu",     # "mxu" (rank-k deployment) | "lut" (behavioural)
+) -> torch.Tensor:
+    """Approximate ``x @ w`` under one circuit spec, float32 out.
+
+    path="mxu": deployment semantics — for truncation circuits the
+    operands are masked to the circuit's width first, then the rank-k
+    kernel runs.  path="lut": behavioural bit-exact semantics through
+    the circuit's product table."""
+    dev = x.device
+    x = x.to(torch.int32).contiguous()
+    w = w.to(torch.int32).contiguous()
+    if path == "lut":
+        if spec.table is None:
+            raise ValueError(f"spec {spec.name} carries no product table")
+        table = torch.as_tensor(spec.table, dtype=torch.int32, device=dev)
+        return lut_matmul_kernel(
+            x, w, table.contiguous(), signed=spec.signed).float()
+    if path != "mxu":
+        raise ValueError(f"unknown path {path!r}")
+    if spec.trunc_bits:
+        x = _mask(x, spec.trunc_bits).contiguous()
+        w = _mask(w, spec.trunc_bits).contiguous()
+    u = torch.as_tensor(spec.u, dtype=torch.float32, device=dev).contiguous()
+    v = torch.as_tensor(spec.v, dtype=torch.float32, device=dev).contiguous()
+    return rank_k_matmul_kernel(x, w, u, v, signed=spec.signed)
+
+
+def grouped_matmul(
+    x: torch.Tensor,                     # (m, k)
+    w: torch.Tensor,                     # (k, n)
+    specs: Sequence[ApproxSpec],
+    groups: Sequence[Tuple[int, int]],   # [start, stop) K-ranges per spec
+    *,
+    path: str = "mxu",
+) -> torch.Tensor:
+    """Per-slot-group approximate matmul: contraction columns [s, e) of
+    group g use circuit specs[g]; the partials are summed."""
+    if len(specs) != len(groups):
+        raise ValueError(f"{len(specs)} specs for {len(groups)} groups")
+    out = None
+    for spec, (s, e) in zip(specs, groups):
+        part = approx_matmul(x[:, s:e], w[s:e, :], spec, path=path)
+        out = part if out is None else out + part
+    return out
+
+
+def quantize_sym(
+    t: torch.Tensor, *, dim: Optional[int] = None, bits: int = 8
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric linear quantization to signed `bits` integers.
+
+    Returns (q, scale) with t ~= q * scale; q in [-(2^(b-1)-1), 2^(b-1)-1].
+    dim=None: per-tensor scale; otherwise per-slice along `dim`.
+    """
+    qmax = float(2 ** (bits - 1) - 1)
+    if dim is None:
+        amax = torch.max(torch.abs(t))
+    else:
+        amax = torch.amax(torch.abs(t), dim=dim, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / qmax
+    q = torch.clamp(torch.round(t / scale), -qmax, qmax).to(torch.int32)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale

@@ -1,0 +1,144 @@
+"""The port's DSE loop against the JAX package's, and the port's
+isolation: it imports neither JAX nor the JAX package, and its entry
+points refuse to run on a machine without a GPU unless asked for the
+CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.accel import GaussianFilter as RefGaussian
+from repro.core import dse as ref_dse
+from repro.core.acl.library import default_library as ref_library
+from repro.core.nsga2 import NSGA2Config as RefNSGA2Config
+from repro_torch import convert
+from repro_torch.accel import GaussianFilter
+from repro_torch.core import dse
+from repro_torch.core.acl.library import default_library
+from repro_torch.core.features import synth
+from repro_torch.core.nsga2 import NSGA2Config
+
+ROOT = Path(__file__).resolve().parents[1]
+LIB = default_library()
+RLIB = ref_library()
+
+SMALL = dict(n_train=24, n_qor_samples=2)
+SMALL_NSGA = dict(pop_size=16, n_parents=8, n_generations=2)
+
+
+def test_run_dse_front_identical_to_reference():
+    got = dse.run_dse(GaussianFilter(), LIB,
+                      dse.DSEConfig(**SMALL, nsga=NSGA2Config(**SMALL_NSGA)),
+                      device="cpu")
+    want = ref_dse.run_dse(RefGaussian(), RLIB, ref_dse.DSEConfig(
+        **SMALL, nsga=RefNSGA2Config(**SMALL_NSGA)))
+    assert np.array_equal(got.front_genomes, want.front_genomes)
+    assert got.front_objectives.tobytes() == want.front_objectives.tobytes()
+    assert np.array_equal(got.train_genomes, want.train_genomes)
+    for k in ("qor", "energy"):
+        assert got.train_labels[k].tobytes() == want.train_labels[k].tobytes()
+    assert got.val_pcc == want.val_pcc
+
+
+def test_label_unique_scatters_back():
+    calls = []
+
+    def labeler(genomes):
+        calls.append(len(genomes))
+        return {"qor": genomes.sum(axis=1).astype(np.float64)}
+
+    g = np.array([[1, 2], [0, 0], [1, 2], [3, 1]])
+    out = dse.label_unique(labeler, g)
+    assert calls == [3]
+    assert np.array_equal(out["qor"], [3.0, 0.0, 3.0, 4.0])
+
+
+def test_library_arrays_equal_across_packages():
+    mine = convert.library_arrays(LIB)
+    ref = convert.library_arrays(RLIB)
+    assert sorted(mine) == sorted(ref)
+    for k in mine:
+        assert mine[k].dtype == ref[k].dtype, k
+        assert mine[k].tobytes() == ref[k].tobytes(), k
+
+
+_ISOLATION = """
+import sys
+sys.path.insert(0, {src!r})
+import repro_torch
+from repro_torch.core.dse import run_dse, default_labeler
+from repro_torch.core.features.synth import label_variants
+from repro_torch.accel import GaussianFilter
+from repro_torch import convert, _build
+from repro_torch.kernels import approx_matmul, population_lut
+from repro_torch.core import strategies, surrogates
+import numpy as np
+acc = GaussianFilter()
+lib = repro_torch.core.acl.library.default_library()
+g = np.stack([acc.exact_genome(lib)] * 2)
+labels = default_labeler(acc, lib, n_qor_samples=1, device="cpu")(g)
+assert labels["qor"][0] == 100.0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """A subprocess, because this test process has already imported
+    both (tests/conftest.py imports the JAX package)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATION.format(src=str(ROOT / "src"))],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)(?!_))",
+    re.MULTILINE)
+
+
+def test_static_scan_finds_no_reference_imports():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    hits = []
+    for p in files:
+        for m in _FORBIDDEN.finditer(p.read_text()):
+            hits.append(f"{p.relative_to(ROOT)}: {m.group(0).strip()}")
+    assert hits == []
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("    from repro.core import qor")
+    assert not _FORBIDDEN.search("from repro_torch.core import qor")
+
+
+def _entry_points():
+    acc = GaussianFilter()
+    g = acc.exact_genome(LIB)[None]
+    x = acc.sample_inputs(1)
+    return {
+        "default_labeler": lambda: dse.default_labeler(acc, LIB),
+        "label_variants": lambda: synth.label_variants(acc, g, LIB,
+                                                       qor_inputs=x),
+        "qor_batch": lambda: acc.qor_batch(g, LIB, x),
+        "simulate_batch": lambda: acc.simulate_batch(g, LIB, x),
+        "run_dse": lambda: dse.run_dse(acc, LIB, dse.DSEConfig(
+            **SMALL, nsga=NSGA2Config(**SMALL_NSGA))),
+    }
+
+
+@pytest.mark.parametrize("name", ["default_labeler", "label_variants",
+                                  "qor_batch", "simulate_batch", "run_dse"])
+def test_entry_point_without_device_raises_without_gpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
