@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--generations N] [--seed S]
+    python3 chip_smoke.py [--generations N] [--seed S] [--phases P,...]
 
 Phases, one JSON object per line on standard output:
 
@@ -13,8 +13,12 @@ Phases, one JSON object per line on standard output:
 3. ``kernel``  — one line per kernel and shape: each kernel's wrapper on
    card tensors against its plain PyTorch version on the same inputs
    (population_lut and lut_matmul byte-equal; rank_k within rtol 1e-5,
-   atol 0.5, with TF32 off), both timed with CUDA events, and for the
-   population gather also the one PyTorch indexing call that computes it.
+   atol 0.5, with TF32 off; flash_attention in float32 within rtol 1e-4,
+   atol 1e-5 and in bf16 within one bf16 rounding of the output;
+   selective_scan within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4
+   at full width), both timed with CUDA events, and where one PyTorch
+   call computes the same function (the population gather's indexing,
+   ``scaled_dot_product_attention``) that call too.
 4. ``labels``  — ``default_labeler(GaussianFilter(), lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes, then a
    second batch of 1000.  ``qor`` and ``energy`` must be bit-identical to
@@ -24,12 +28,30 @@ Phases, one JSON object per line on standard output:
    (n_train=1000, pop_size=1000, n_parents=200, 4 QoR images), with
    ``n_generations`` cut as the ``reduced`` field says; the front's labels
    are checked against ``device="cpu"``.
+6. ``serve_granite-8b``, ``serve_granite-8b_approx``,
+   ``serve_falcon-mamba-7b`` — the LM serving path at full width and
+   depth, one model at a time (freed before the next): weights drawn from
+   the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
+   gen=32)``.  In one more prefill every layer's kernel call is held
+   against the plain version on that layer's own inputs (the kernel
+   rows' tolerance).  The prefill's last-position logits with the
+   kernels are held against the same model with the plain attention /
+   scan, within max(0.12, 2 x the spread that the JAX model code's own
+   chunked form of the function shows against the plain one in the same
+   run; see ``LOGITS_TOL``), and the greedy tokens of both are compared.
+   A profiled prefill and 4 decode steps give device time, the kernel's
+   share and the decode's launches and idle share.  The ``_approx`` phase
+   serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
+   at rank 3.
 
-Every kernel's launch count is set to 0 just before each of phases 4 and
-5 and read just after; a kernel of the main path (``MAIN_PATH``) that the
-phase did not launch fails the run.  ``lut_matmul`` is the behavioural
+Every kernel's launch count is set to 0 just before each of phases 4 to
+6 and read just after; a kernel of the phase's main path
+(``MAIN_PATH``) that the phase did not launch, or did not launch once per
+layer for the serve phases, fails the run.  ``lut_matmul`` is the behavioural
 route of the deployment module, which the labels do not run; its rows in
 phase 3 hold it against its plain version.
+``--phases`` runs a subset (the first check of a new kernel on the card)
+and then prints no summary and exits 3.
 Then one line ``{"kernels": [...]}`` sums it up, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed build,
 launch or comparison exits non-zero before that line, as does a machine
@@ -53,11 +75,59 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 
-RANK_RTOL, RANK_ATOL = 1e-5, 0.5     # as the JAX package's kernel tests
+# bf16 dense rate of the tensor cores (the yardstick for attention, which
+# scaled_dot_product_attention runs there)
+TENSOR_CORE_BF16_OPS_PER_S = 989e12
 
-# kernels that labeling and run_dse launch: the population gather of every
-# QoR label and the rank-k deployment graph that synthesis runs
-MAIN_PATH = ("population_lut", "rank_k")
+RANK_RTOL, RANK_ATOL = 1e-5, 0.5     # as the JAX package's kernel tests
+FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5  # tests/test_kernels.py
+# bf16 output: both versions do float32 math and round once to bf16, so
+# they may differ by one bf16 rounding (2^-8 relative, up to 2^-7)
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2 ** -7, 1e-3
+# the library call (bf16 P.V on the tensor cores) is only a yardstick
+SDPA_RTOL, SDPA_ATOL = 2e-2, 5e-2
+SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-5    # tests/test_kernels_scan.py
+SCAN_WIDE_TOL = 1e-4                 # 1024 sequential steps
+# bf16 logits: the JAX package's own tolerance (tests/test_models.py) at
+# its 2-layer test size.  At full depth one bf16 rounding that differs in
+# one layer moves the logits further: the JAX model code's own form of
+# the function (chunked) against the plain one moves them by ``spread``,
+# measured in the same run, and kernel vs plain is another draw of the
+# same rounding noise, so the serve phases hold it to
+# max(LOGITS_TOL, LOGITS_SPREAD_FACTOR * spread).  A fault of the kernel
+# itself shows in the per-layer check, at the kernel rows' tolerance.
+LOGITS_TOL = 0.12
+LOGITS_SPREAD_FACTOR = 2.0
+
+SERVE = dict(batch=8, prompt_len=1024, gen=32)
+
+# flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label)
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, 0, "float32", "JAX test shape"),
+    (1, 4, 4, 256, 256, 64, 0, "float32", "JAX test shape"),
+    (1, 8, 2, 1000, 1000, 128, 0, "float32", "ragged, GQA 8/2"),
+    (2, 8, 2, 1, 1056, 128, 1000, "float32",
+     "decode offset, one query at position 1000"),
+    (8, 32, 8, 1024, 1024, 128, 0, "bfloat16",
+     "granite-8b prefill (serving shape), GQA 32/8"),
+]
+# selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
+# falcon-mamba-7b's prefill at the serving batch
+SCAN_CASES = [(1, 16, 8, 4), (2, 64, 32, 8), (1, 128, 16, 16),
+              (8, 1024, 8192, 16)]
+
+# kernels each main-path phase must launch: the population gather of every
+# QoR label and the rank-k deployment graph that synthesis runs; the
+# prefill attention of every attention layer; the prefill scan of every
+# Mamba layer
+MAIN_PATH = {
+    "labels": ("population_lut", "rank_k"),
+    "dse": ("population_lut", "rank_k"),
+    "serve_granite-8b": ("flash_attention",),
+    "serve_granite-8b_approx": ("flash_attention",),
+    "serve_falcon-mamba-7b": ("selective_scan",),
+}
+PHASES = ("device", "build", "kernel", "labels", "dse", "serve")
 
 
 class SmokeFailure(RuntimeError):
@@ -136,39 +206,59 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     walls = _build.build()
     wall = time.perf_counter() - t0
+    # per kernel: the entry functions (mangled names carry the template
+    # arguments) with their registers, shared memory and spills
     ptxas = {
         name: [ln.split(":", 1)[-1].strip()
                for ln in _build.build_log(name).splitlines()
-               if "Used" in ln or "spill" in ln]
+               if "Used" in ln or "spill" in ln or "entry function" in ln]
         for name in _build.KERNELS
     }
     emit({"phase": "build", "wall_s": wall, "nvcc_s": walls, "ptxas": ptxas})
 
 
+def _max_err(got, want) -> float:
+    import torch
+
+    if isinstance(got, tuple):
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    if not got.numel():
+        return 0.0
+    return float(torch.max(torch.abs(got.double() - want.double())))
+
+
 def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
-                compare, nbytes, ops, repeats=20, library_fn=None):
+                compare, nbytes, ops, repeats=20, library_fn=None,
+                library_compare=None, plain_repeats=None, extra=None):
     import torch
 
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
-    check(got.shape == want.shape and got.dtype == want.dtype,
-          f"{name}[{case}]: kernel {tuple(got.shape)} {got.dtype} vs plain "
-          f"{tuple(want.shape)} {want.dtype}")
-    err = float(torch.max(torch.abs(got.double() - want.double()))) \
-        if got.numel() else 0.0
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name}[{case}]: kernel {tuple(g.shape)} {g.dtype} vs plain "
+              f"{tuple(w.shape)} {w.dtype}")
+    err = _max_err(got, want)
     compare(got, want, f"{name}[{case}]")
+    library_err = None
     if library_fn is not None:
-        compare(library_fn(), want, f"{name}[{case}] library call")
+        lib_out = library_fn()
+        library_err = _max_err(lib_out, want)
+        (library_compare or compare)(lib_out, want,
+                                     f"{name}[{case}] library call")
     ms = time_ms(kernel_fn, repeats=repeats)
-    plain_ms = time_ms(plain_fn, repeats=repeats)
+    plain_ms = time_ms(plain_fn, repeats=plain_repeats or repeats)
     library_ms = (time_ms(library_fn, repeats=repeats)
                   if library_fn is not None else None)
     b_ms, b_by = bound(nbytes=nbytes, ops=ops)
     row = {"name": name, "case": case, "route": "cuda", "source": route_src,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms, **(extra or {})}
+    if library_err is not None:
+        row["library_max_abs_err"] = library_err
     emit({"phase": "kernel", **row})
     return row
 
@@ -179,11 +269,20 @@ def _byte_equal(got, want, what):
     check(torch.equal(got, want), f"{what}: kernel differs from plain version")
 
 
-def _rank_close(got, want, what):
-    import torch
+def _close(rtol, atol):
+    def compare(got, want, what):
+        import torch
 
-    check(torch.allclose(got, want, rtol=RANK_RTOL, atol=RANK_ATOL),
-          f"{what}: kernel outside rtol {RANK_RTOL}, atol {RANK_ATOL}")
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            check(bool(torch.isfinite(g).all()), f"{what}: not finite")
+            check(torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol),
+                  f"{what}: outside rtol {rtol}, atol {atol} (max |diff| "
+                  f"{_max_err(g, w):.3g})")
+    return compare
+
+
+_rank_close = _close(RANK_RTOL, RANK_ATOL)
 
 
 def phase_kernels(seed: int) -> list:
@@ -327,6 +426,105 @@ def phase_kernels(seed: int) -> list:
             _byte_equal,
             nbytes=4.0 * (65536 + 3 * n * n), ops=float(n) ** 3, repeats=10,
         ))
+    rows += _flash_rows(rng, dev)
+    rows += _scan_rows(rng, dev)
+    return rows
+
+
+def _causal_pairs(sq: int, sk: int, q_offset: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves visible: the work this run's
+    inputs need."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, i + q_offset + 1) for i in range(sq))
+
+
+def _flash_rows(rng, dev) -> list:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention, flash_attention_kernel,
+    )
+
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    rep = "src/repro/kernels/flash_attention/kernel.py:77"
+    rows = []
+    for b, h, kvh, sq, sk, d, off, dtype, label in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
+        q, k, v = draw(b, h, sq, d), draw(b, kvh, sk, d), draw(b, kvh, sk, d)
+        bf16 = dt == torch.bfloat16
+        esz = q.element_size()
+        pairs = _causal_pairs(sq, sk, off, True) * b * h
+        ops = 4.0 * d * pairs              # q.k and p.v, 2 flops per FMA
+        nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
+        library_fn = None
+        if bf16:
+            library_fn = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        rows.append(_kernel_row(
+            "flash_attention",
+            f"b={b} h={h} kvh={kvh} sq={sq} sk={sk} d={d} q_offset={off} "
+            f"{'bf16' if bf16 else 'f32'} causal ({label})",
+            src, rep,
+            lambda q=q, k=k, v=v, off=off: flash_attention_kernel(
+                q, k, v, causal=True, q_offset=off),
+            lambda q=q, k=k, v=v, off=off: attention(
+                q, k, v, causal=True, q_offset=off, impl="plain"),
+            _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
+            else _close(FLASH_RTOL, FLASH_ATOL),
+            nbytes=nbytes, ops=ops, repeats=10 if bf16 else 20,
+            library_fn=library_fn, library_compare=_close(SDPA_RTOL, SDPA_ATOL),
+            extra={"tensor_core_bound_ms": max(
+                nbytes / HBM_BYTES_PER_S, ops / TENSOR_CORE_BF16_OPS_PER_S)
+                * 1e3},
+        ))
+    return rows
+
+
+def _scan_rows(rng, dev) -> list:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        selective_scan, selective_scan_kernel,
+    )
+
+    src = "src/repro_torch/csrc/selective_scan.cu"
+    rep = "src/repro/kernels/selective_scan/kernel.py:66"
+    rows = []
+    for b, s, di, n in SCAN_CASES:
+        # drawn as _inputs in tests/test_kernels_scan.py
+        arrs = (rng.standard_normal((b, s, di)),
+                rng.uniform(0.01, 0.2, (b, s, di)),
+                -rng.uniform(0.5, 2.0, (di, n)),
+                rng.standard_normal((b, s, n)),
+                rng.standard_normal((b, s, n)),
+                rng.standard_normal((b, di, n)) * 0.1)
+        x, dt, A, B, C, h0 = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                              for a in arrs)
+        wide = b * di > 4096
+        tol = SCAN_WIDE_TOL if wide else SCAN_RTOL
+        rows.append(_kernel_row(
+            "selective_scan",
+            f"b={b} s={s} di={di} n={n} f32"
+            + (" (falcon-mamba-7b prefill width)" if wide
+               else " (JAX test shape)"),
+            src, rep,
+            lambda x=x, dt=dt, A=A, B=B, C=C, h0=h0: selective_scan_kernel(
+                x, dt, A, B, C, h0),
+            lambda x=x, dt=dt, A=A, B=B, C=C, h0=h0: selective_scan(
+                x, dt, A, B, C, h0, impl="plain"),
+            _close(tol, tol if wide else SCAN_ATOL),
+            nbytes=4.0 * (3 * b * s * di + 2 * b * s * n + di * n
+                          + 2 * b * di * n),
+            ops=float(b) * s * di * (7 * n + 1),
+            repeats=10 if wide else 20, plain_repeats=2 if wide else 5,
+        ))
     return rows
 
 
@@ -379,7 +577,7 @@ def phase_labels(seed: int) -> dict:
     _check_labels(lab1, len(g1), "labels batch 1")
     _check_labels(lab2, len(g2), "labels batch 2")
     check(lab1["qor"][0] == 100.0, "exact genome's QoR is not 100.0")
-    for k in MAIN_PATH:
+    for k in MAIN_PATH["labels"]:
         check(launches[k] > 0, f"labels phase launched no {k} kernel")
     sub = 64
     cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(g1[:sub])
@@ -433,7 +631,7 @@ def phase_dse(generations: int) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
 
-    for k in MAIN_PATH:
+    for k in MAIN_PATH["dse"]:
         check(launches[k] > 0, f"dse phase launched no {k} kernel")
     front_g = res.front_genomes
     front_o = res.front_objectives
@@ -461,12 +659,309 @@ def phase_dse(generations: int) -> dict:
     return out
 
 
+def _device_time(prof, name: str = "") -> tuple:
+    """(seconds, launches) of the CUDA kernels in a profiler window whose
+    name contains ``name``; (None, None) if the trace holds no device
+    time."""
+    from torch.autograd import DeviceType
+
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or name not in e.key:
+            continue
+        us += getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+        n += e.count
+    return (us * 1e-6, n) if us > 0 else (None, None)
+
+
+def _chunked_form_attention(q, k, v, *, causal=True, impl=None):
+    """The function the JAX package's model code runs in prefill
+    (``chunked_attention``), as one masked softmax: like the plain
+    version but with q scaled in its own dtype before the float32 cast.
+    Used only to measure how far the reference's own two forms of the
+    function move the full-depth logits."""
+    import torch
+
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    qg = (q * d ** -0.5).float().reshape(b, kvh, h // kvh, sq, d)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    mask = torch.arange(sk, device=q.device)[None, :] <= torch.arange(
+        sq, device=q.device)[:, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan along dim 1 of (a, b) pairs under
+    (a1, b1), (a2, b2) -> (a1 a2, b2 + a2 b1), by doubling steps."""
+    import torch
+
+    step, L = 1, a.shape[1]
+    while step < L:
+        b = torch.cat([b[:, :step], b[:, step:] + a[:, step:] * b[:, :-step]],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
+        step *= 2
+    return a, b
+
+
+def _chunked_form_scan(x, dt, A, B, C, h0=None, *, impl=None, chunk=128):
+    """The function the JAX package's model code runs in Mamba prefill
+    (``_selective_scan_chunked``): an associative scan inside 128-step
+    chunks, the state carried across chunks.  Used only to measure how
+    far the reference's own two forms of the scan move the full-depth
+    logits."""
+    import torch
+
+    b, s, di = x.shape
+    h = (torch.zeros((b, di, A.shape[1]), device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, s, chunk):
+        xc, dtc, Bc, Cc = (t[:, c0:c0 + chunk] for t in (x, dt, B, C))
+        a = torch.exp(dtc[..., None] * A)
+        bx = (dtc * xc)[..., None] * Bc[:, :, None, :]
+        a, bx = _assoc_scan(a, bx)
+        hh = bx + a * h[:, None]
+        ys.append(torch.einsum("blin,bln->bli", hh, Cc))
+        h = hh[:, -1]
+        del a, bx, hh
+    return torch.cat(ys, dim=1), h
+
+
+def _per_layer_check(model, prompts, kernel: str) -> dict:
+    """One more prefill in which every layer's attention (or scan) call
+    runs the kernel and the plain version on that layer's own inputs;
+    the kernel's output goes on.  Fails if any layer's kernel output is
+    outside the kernel rows' tolerance; returns the worst difference and
+    the share of outputs that differ at all."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.train.serve import make_prefill_step
+
+    worst, differ, total = 0.0, 0, 0
+    if kernel == "flash_attention":
+        mod, attr = attn_mod, "attn_op"
+        compare = _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    else:
+        mod, attr = ssm_mod, "selective_scan"
+        compare = _close(SCAN_WIDE_TOL, SCAN_WIDE_TOL)
+    orig = getattr(mod, attr)
+
+    def both(*args, impl=None, **kw):
+        nonlocal worst, differ, total
+        got = orig(*args, impl="kernel", **kw)
+        want = orig(*args, impl="plain", **kw)
+        compare(got, want, f"{kernel} on layer inputs")
+        worst = max(worst, _max_err(got, want))
+        g0 = got[0] if isinstance(got, tuple) else got
+        w0 = want[0] if isinstance(want, tuple) else want
+        differ += int((g0 != w0).sum())
+        total += g0.numel()
+        return got
+
+    setattr(mod, attr, both)
+    try:
+        b, L = prompts.shape
+        make_prefill_step(model)(prompts, model.init_caches(b, L))
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, attr, orig)
+    return {"max_abs_err": worst, "share_of_outputs_differing":
+            differ / max(total, 1)}
+
+
+def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
+    """One prefill and ``steps`` decode steps under ``torch.profiler``:
+    device (kernel) time against host wall time, the ported kernel's
+    share of the prefill, and the decode's launches and idle share per
+    step.  Profiling adds host time, so the walls here are above the
+    unprofiled run's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+    kname = {"flash_attention": "flash_fwd_kernel",
+             "selective_scan": "selective_scan_kernel"}[kernel]
+    b, L = prompts.shape
+    caches = model.init_caches(b, L + steps + 1)
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        logits, caches = prefill(prompts, caches)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        pre_wall = time.perf_counter() - t0
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            nxt, _, caches = decode(caches, nxt, L + i)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+    pre_dev, _ = _device_time(prof_p)
+    ker_dev, ker_n = _device_time(prof_p, kname)
+    dec_dev, dec_n = _device_time(prof_d)
+    return {
+        "prefill_wall_s": pre_wall, "prefill_device_s": pre_dev,
+        "prefill_kernel_s": ker_dev, "prefill_kernel_launches": ker_n,
+        "kernel_share_of_prefill_device": (ker_dev / pre_dev
+                                           if ker_dev and pre_dev else None),
+        "decode_steps": steps, "decode_wall_s_per_step": dec_wall / steps,
+        "decode_device_s_per_step": (dec_dev / steps if dec_dev else None),
+        "decode_launches_per_step": (dec_n / steps if dec_n else None),
+        "decode_idle_share": (1.0 - dec_dev / dec_wall if dec_dev else None),
+    }
+
+
+def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
+    """Serve ``arch`` at full width and depth on the card; free it after."""
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_model, serve_batch
+    from repro_torch.models import ApproxPolicy
+    from repro_torch.train.serve import make_prefill_step
+
+    name = f"serve_{arch}" + ("_approx" if approx else "")
+    cfg = get_config(arch)
+    policy = None
+    if approx:
+        policy = ApproxPolicy({"ffn_in": ("mul8s_mitchell", 3),
+                               "ffn_out": ("mul8s_mitchell", 3)})
+    b, L, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    g = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (b, L), generator=g)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, policy=policy, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    timings: dict = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, tps = serve_batch(cfg, batch=b, prompt_len=L, gen=gen,
+                              policy=policy, prompts=prompts, model=model,
+                              timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(tuple(tokens.shape) == (b, L + gen),
+          f"{name}: tokens {tuple(tokens.shape)}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab,
+          f"{name}: token ids outside the vocabulary")
+    check(torch.equal(tokens[:, :L].cpu(), prompts.to(torch.int32)),
+          f"{name}: prompt not carried into the tokens")
+    kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
+    n_layers = {"flash_attention": sum(k.mixer == "attn" for k in kinds),
+                "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
+    for k in MAIN_PATH[name]:
+        check(launches[k] >= n_layers[k],
+              f"{name}: {k} launched {launches[k]} times, fewer than the "
+              f"{n_layers[k]} layers that run it")
+
+    # kernel route against the plain route, same model and prompts
+    logits = {}
+    for impl in ("kernel", "plain"):
+        caches = model.init_caches(b, L)
+        lg, _ = make_prefill_step(model, impl=impl)(prompts.cuda(), caches)
+        del caches
+        logits[impl] = lg.float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits["kernel"]).all()),
+          f"{name}: prefill logits not finite")
+    err = float((logits["kernel"] - logits["plain"]).abs().max())
+    kernel = MAIN_PATH[name][0]
+    layers = _per_layer_check(model, prompts.cuda(), kernel)
+    # the same prefill with the JAX model code's own form of the function
+    # (plain route otherwise): how far the reference's two forms of it
+    # move these logits, measured on this model and these prompts
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.ssm as ssm_mod
+
+    mod, attr, form = {
+        "flash_attention": (attn_mod, "attn_op", _chunked_form_attention),
+        "selective_scan": (ssm_mod, "selective_scan", _chunked_form_scan),
+    }[kernel]
+    orig = getattr(mod, attr)
+    setattr(mod, attr, form)
+    try:
+        lg, _ = make_prefill_step(model, impl="plain")(
+            prompts.cuda(), model.init_caches(b, L))
+    finally:
+        setattr(mod, attr, orig)
+    spread = float((lg.float() - logits["plain"]).abs().max())
+    del lg
+    tol = max(LOGITS_TOL, LOGITS_SPREAD_FACTOR * spread)
+    emit({"phase": name + "_diagnostics", "logits_kernel_vs_plain": err,
+          "per_layer": layers, "logits_chunked_form_vs_plain": spread,
+          "logits_tolerance": tol})
+    check(err <= tol, f"{name}: kernel vs plain prefill logits differ "
+                      f"by {err:.4g} (tolerance {tol:.4g})")
+    plain_tokens, _ = serve_batch(cfg, batch=b, prompt_len=L, gen=gen,
+                                  policy=policy, prompts=prompts, model=model,
+                                  impl="plain")
+    agree = float((tokens[:, L:] == plain_tokens[:, L:]).float().mean())
+    prof = _profile_request(model, prompts.cuda(), MAIN_PATH[name][0])
+    out = {
+        "phase": name, "arch": arch, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "widths": ({"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                    "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff}
+                   if cfg.family != "ssm" else
+                   {"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+                    "dt_rank": cfg.resolved_dt_rank}),
+        "vocab": cfg.padded_vocab, **SERVE,
+        "policy": ({"ffn_in": ["mul8s_mitchell", 3],
+                    "ffn_out": ["mul8s_mitchell", 3]} if approx else None),
+        "reduced": None,
+        "param_bytes": model.param_bytes(), "init_s": init_s,
+        "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+        "decode_tokens_per_s": tps, "wall_s": wall,
+        "max_memory_allocated": peak,
+        "launches": launches,
+        "launches_per_layer": {k: launches[k] / n_layers[k]
+                               for k in MAIN_PATH[name]},
+        "logits_kernel_vs_plain_max_abs": err,
+        "per_layer_kernel_vs_plain": layers,
+        "logits_chunked_form_vs_plain_max_abs": spread,
+        "logits_tolerance": tol,
+        "greedy_tokens_agree": agree,
+        "profile": prof,
+    }
+    del model, logits
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--generations", type=int, default=100,
                     help="NSGA-II generations of the dse phase")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (device and build always run); the summary and the "
+                    "last line are printed only when all run")
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -482,9 +977,16 @@ def main(argv=None) -> int:
     try:
         info = phase_device()
         phase_build()
-        rows = phase_kernels(args.seed)
-        labels = phase_labels(args.seed)
-        dse = phase_dse(args.generations)
+        rows = phase_kernels(args.seed) if "kernel" in phases else []
+        runs = []
+        if "labels" in phases:
+            runs.append(phase_labels(args.seed))
+        if "dse" in phases:
+            runs.append(phase_dse(args.generations))
+        if "serve" in phases:
+            runs.append(phase_serve("granite-8b", args.seed))
+            runs.append(phase_serve("granite-8b", args.seed, approx=True))
+            runs.append(phase_serve("falcon-mamba-7b", args.seed))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -494,9 +996,11 @@ def main(argv=None) -> int:
     if leaked:
         print(f"chip_smoke: FAIL: imported {leaked[:5]}", file=sys.stderr)
         return 1
+    if phases != set(PHASES):
+        print("chip_smoke: not every phase ran; no summary", file=sys.stderr)
+        return 3
     for row in rows:
-        row["launches"] = (labels["launches"][row["name"]]
-                           + dse["launches"][row["name"]])
+        row["launches"] = sum(r["launches"][row["name"]] for r in runs)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

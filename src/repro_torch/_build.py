@@ -42,6 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry point and argument types of each kernel's library
 KERNELS: Dict[str, tuple] = {
@@ -52,6 +53,14 @@ KERNELS: Dict[str, tuple] = {
     "rank_k": ("rank_k_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (x, w, table, out, m, n, k, offset, stream)
     "lut_matmul": ("lut_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale,
+    #  dtype, stream)
+    "flash_attention": ("flash_attention_fwd",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _I, _P]),
+    # (x, dt, A, B, C, h0, y, hT, b, s, di, n, stream)
+    "selective_scan": ("selective_scan_fwd",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

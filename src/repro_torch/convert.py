@@ -1,22 +1,26 @@
-"""Carry circuit state across from the JAX package as plain numpy.
+"""Carry circuit state and model parameters across from the JAX package
+as plain numpy.
 
 The port imports nothing of the JAX package; state crosses as numpy
 arrays.  ``library_arrays`` dumps any circuit library (the port's, or
 one with the same duck-typed ``Circuit`` attributes) to numpy, so two
 libraries can be compared array by array; ``spec_from_arrays`` builds
 the port's ``ApproxSpec`` from the arrays of a spec made elsewhere, so
-both packages' matmuls can be fed the same spec.
+both packages' matmuls can be fed the same spec;
+``lm_params_from_numpy`` turns an LM parameter tree into the port's
+``state_dict``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from .kernels.approx_matmul import ApproxSpec
 
-__all__ = ["spec_from_arrays", "library_arrays"]
+__all__ = ["spec_from_arrays", "library_arrays", "lm_params_from_numpy"]
 
 # fixed adder probe: 16-bit operand pairs covering carry-chain corners
 _ADD_PROBE = (np.arange(0, 1 << 16, 257, dtype=np.int64),
@@ -67,4 +71,36 @@ def library_arrays(lib) -> Dict[str, np.ndarray]:
             f = c.factors(c.deploy_rank)
             out[f"{c.name}/u"] = np.asarray(f.u, dtype=np.float32)
             out[f"{c.name}/v"] = np.asarray(f.v, dtype=np.float32)
+    return out
+
+
+def lm_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state_dict from the JAX package's LM
+    parameter tree, given as nested dicts of numpy arrays.
+
+    ``tree["blocks"]["layer<i>"]`` leaves carry a leading super-block
+    axis; super-block ``sb``'s position ``i`` becomes layer
+    ``sb * len(cfg.block_pattern) + i``.  Tensors keep the tree's dtype;
+    ``load_state_dict`` casts each to its parameter's storage dtype."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    pattern = cfg.block_pattern
+    nsb = cfg.n_superblocks
+    out: Dict[str, torch.Tensor] = {"embed": t(tree["embed"])}
+    for i, _kind in enumerate(pattern):
+        layer = tree["blocks"][f"layer{i}"]
+        for mod_name, params in layer.items():
+            for name, arr in params.items():
+                arr = np.asarray(arr)
+                if arr.shape[0] != nsb:
+                    raise ValueError(
+                        f"layer{i}.{mod_name}.{name}: leading axis "
+                        f"{arr.shape[0]}, expected {nsb} super-blocks")
+                for sb in range(nsb):
+                    j = sb * len(pattern) + i
+                    out[f"layers.{j}.{mod_name}.{name}"] = t(arr[sb])
+    out["final_norm"] = t(tree["final_norm"])
+    if "lm_head" in tree:
+        out["lm_head"] = t(tree["lm_head"])
     return out

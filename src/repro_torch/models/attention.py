@@ -1,0 +1,126 @@
+"""Attention layer: GQA self-attention with RoPE and a preallocated KV
+cache.  Prefill runs the flash-attention kernel over the prompt's own
+k/v; decode attends one token over the masked cache in float32, plain
+PyTorch, as the JAX package does.  Projections route through
+``approx_linear.linear`` so a DSE policy applies."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..kernels.flash_attention import attention as attn_op
+from .approx_linear import ApproxPolicy, linear, param_dtypes
+from .common import ParamModule, ParamSpec, apply_rope, rms_norm
+from .config import ModelConfig
+
+__all__ = [
+    "Attention",
+    "attn_param_specs",
+    "gqa_decode_attention",
+    "init_kv_cache",
+]
+
+# projection class of each weight
+_CLASSES = {"wq": "qkv", "wk": "qkv", "wv": "qkv", "wo": "attn_out"}
+
+
+def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "norm": ParamSpec((d,), init="zeros"),
+        "wq": ParamSpec((d, cfg.n_heads * hd)),
+        "wk": ParamSpec((d, cfg.n_kv_heads * hd)),
+        "wv": ParamSpec((d, cfg.n_kv_heads * hd)),
+        "wo": ParamSpec((cfg.n_heads * hd, d)),
+    }
+
+
+def gqa_decode_attention(
+    q: torch.Tensor,     # (b, h, 1, d)
+    ck: torch.Tensor,    # (b, kvh, S, d)
+    cv: torch.Tensor,
+    pos: int,            # attend to cache positions <= pos
+) -> torch.Tensor:
+    """Single-token decode attention over the whole preallocated cache,
+    masked past ``pos``; float32 math, GQA by a grouped einsum."""
+    b, h, _, d = q.shape
+    kvh, s = ck.shape[1], ck.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d)
+    scale = d ** -0.5
+    scores = torch.einsum("bgrd,bgsd->bgrs", (qg * scale).float(), ck.float())
+    mask = torch.arange(s, device=q.device) <= pos
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bgsd->bgrd", probs, cv.float())
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1).transpose(1, 2)   # (b, h, s, d)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+class Attention(ParamModule):
+    def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
+                 device):
+        specs = attn_param_specs(cfg)
+        super().__init__(specs, param_dtypes(specs, _CLASSES, policy), device)
+        self.cfg = cfg
+        self.policy = policy
+
+    def forward(
+        self,
+        x: torch.Tensor,                   # (b, s, d)
+        inv_freq: torch.Tensor,
+        *,
+        cache: Optional[Dict[str, torch.Tensor]] = None,
+        pos: Optional[int] = None,         # decode position
+        impl: str = "kernel",
+    ) -> torch.Tensor:
+        """Prefill (``pos`` None): causal attention over the sequence
+        through the flash kernel; with a cache, this sequence's k/v are
+        written to its first positions.  Decode (``pos`` given, s == 1):
+        k/v written at ``pos`` and attention over the cache.  The cache is
+        updated in place."""
+        cfg, policy = self.cfg, self.policy
+        s = x.shape[1]
+        h = rms_norm(x, self.norm, cfg.rms_eps)
+        q = _split_heads(linear(h, self.wq, "qkv", policy), cfg.n_heads)
+        k = _split_heads(linear(h, self.wk, "qkv", policy), cfg.n_kv_heads)
+        v = _split_heads(linear(h, self.wv, "qkv", policy), cfg.n_kv_heads)
+
+        positions = None
+        if pos is not None:
+            positions = torch.full((s,), pos, dtype=torch.int32,
+                                   device=x.device)
+        q = apply_rope(q, inv_freq, positions)
+        k = apply_rope(k, inv_freq, positions)
+
+        if cache is not None:
+            start = 0 if pos is None else pos
+            cache["k"][:, :, start:start + s] = k
+            cache["v"][:, :, start:start + s] = v
+
+        if pos is not None:
+            out = gqa_decode_attention(q, cache["k"], cache["v"], pos)
+        else:
+            # prefill attends over the locally computed k/v, as the JAX
+            # package does, not over the bf16 cache copy
+            out = attn_op(q, k, v, causal=True, impl=impl)
+        return linear(_merge_heads(out), self.wo, "attn_out", policy)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """One layer's KV cache: bf16 zeros of (b, kvh, max_len, hd)."""
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}

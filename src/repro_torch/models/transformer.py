@@ -1,0 +1,187 @@
+"""Model assembly: the embedding, the layer stack, the final norm and
+the LM head; full forward (teacher forcing / prefill), single-token
+decode and cache allocation.
+
+The JAX package scans stacked super-blocks; here the stack is a flat
+``nn.ModuleList`` of ``n_layers`` layers, super-block-major (layer
+``sb * len(block_pattern) + i`` is position ``i`` of super-block ``sb``).
+Weights are stored in the dtype their use needs (``approx_linear``), so
+the policy a model serves under is fixed when it is built.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .approx_linear import ApproxPolicy
+from .attention import Attention, init_kv_cache
+from .common import ParamSpec, init_params, make_rope, rms_norm
+from .config import LayerKind, ModelConfig
+from .moe import DenseMLP
+from .ssm import Mamba, init_mamba_cache
+
+__all__ = ["Layer", "Transformer", "init_caches"]
+
+Caches = List[Dict[str, torch.Tensor]]
+
+
+class Layer(nn.Module):
+    """One layer of ``block_pattern``: a mixer (attention or Mamba) and
+    an optional dense MLP, each a residual branch."""
+
+    def __init__(self, cfg: ModelConfig, kind: LayerKind,
+                 policy: Optional[ApproxPolicy], device):
+        super().__init__()
+        if kind.cross_attn:
+            raise NotImplementedError(
+                "encoder-decoder cross attention is not ported yet")
+        if kind.mlp == "moe":
+            raise NotImplementedError("the MoE layer is not ported yet")
+        self.kind = kind
+        if kind.mixer == "attn":
+            self.attn = Attention(cfg, policy, device)
+        elif kind.mixer == "mamba":
+            self.mamba = Mamba(cfg, policy, device)
+        else:
+            raise ValueError(f"unknown mixer {kind.mixer!r}")
+        self.mlp = DenseMLP(cfg, policy, device) if kind.mlp == "dense" else None
+
+    def forward(self, x, inv_freq, *, cache=None, pos=None, impl="kernel"):
+        if self.kind.mixer == "attn":
+            x = x + self.attn(x, inv_freq, cache=cache, pos=pos, impl=impl)
+        else:
+            x = x + self.mamba(x, cache=cache, decode=pos is not None,
+                               impl=impl)
+        if self.mlp is not None:
+            x = x + self.mlp(x)
+        return x
+
+
+class Transformer(nn.Module):
+    """A decoder-only LM of a ``ModelConfig``.  Parameters are allocated
+    uninitialised on ``device``; seed them with ``init_weights(seed)`` or
+    load a ``state_dict`` (``convert.lm_params_from_numpy``)."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 policy: Optional[ApproxPolicy] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        if cfg.is_encoder_decoder or cfg.frontend != "none":
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder and front-end families are "
+                "not ported yet")
+        self.cfg = cfg
+        self.policy = policy
+        d, v = cfg.d_model, cfg.padded_vocab
+        # embedding rows and the head are only ever used cast to bf16
+        self.embed = nn.Parameter(
+            torch.empty((v, d), dtype=torch.bfloat16, device=dev),
+            requires_grad=False)
+        self.layers = nn.ModuleList(
+            Layer(cfg, kind, policy, dev)
+            for _ in range(cfg.n_superblocks) for kind in cfg.block_pattern)
+        self.final_norm = nn.Parameter(
+            torch.empty((d,), dtype=torch.float32, device=dev),
+            requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(
+                torch.empty((d, v), dtype=torch.bfloat16, device=dev),
+                requires_grad=False)
+        inv = make_rope(cfg.resolved_head_dim, cfg.rope_theta,
+                        fraction=0.5 if cfg.rope_style == "half" else 1.0)
+        self.register_buffer("inv_freq", torch.from_numpy(inv).to(dev),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        """Every parameter's ParamSpec, keyed and ordered as
+        ``named_parameters``."""
+        cfg = self.cfg
+        d, v = cfg.d_model, cfg.padded_vocab
+        specs: Dict[str, ParamSpec] = {"embed": ParamSpec((v, d))}
+        for j, layer in enumerate(self.layers):
+            for mod_name, mod in layer.named_children():
+                for name, spec in mod.specs.items():
+                    specs[f"layers.{j}.{mod_name}.{name}"] = spec
+        specs["final_norm"] = ParamSpec((d,), init="zeros")
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ParamSpec((d, v))
+        return {name: specs[name] for name, _ in self.named_parameters()}
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> "Transformer":
+        """Draw every parameter from one ``torch.Generator`` seeded with
+        ``seed``, in place (``common.init_params``)."""
+        params = dict(self.named_parameters())
+        specs = self.param_specs()
+        if list(specs) != list(params):
+            raise RuntimeError("parameter specs out of step with the module")
+        init_params(specs, seed, self.device, out=params)
+        return self
+
+    def param_bytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.parameters())
+
+    # -- forward pieces ------------------------------------------------------
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens.long()].to(torch.bfloat16)
+        if self.cfg.name.startswith("gemma"):
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def run_layers(self, x: torch.Tensor, *, caches: Optional[Caches] = None,
+                   pos: Optional[int] = None,
+                   impl: str = "kernel") -> torch.Tensor:
+        for j, layer in enumerate(self.layers):
+            x = layer(x, self.inv_freq,
+                      cache=caches[j] if caches is not None else None,
+                      pos=pos, impl=impl)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return x.to(torch.bfloat16) @ head.to(torch.bfloat16)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, *,
+                caches: Optional[Caches] = None,
+                impl: str = "kernel") -> torch.Tensor:
+        """Teacher-forcing / prefill forward: (b, s, padded_vocab) bf16
+        logits.  With ``caches``, they are filled with this sequence."""
+        x = self.run_layers(self.embed_tokens(tokens), caches=caches,
+                            impl=impl)
+        return self.logits(x)
+
+    @torch.no_grad()
+    def decode_step(self, caches: Caches, tokens: torch.Tensor,
+                    pos: int) -> torch.Tensor:
+        """One autoregressive step (tokens (b, 1)) at write position
+        ``pos`` against preallocated caches: (b, 1, V) logits."""
+        x = self.run_layers(self.embed_tokens(tokens), caches=caches,
+                            pos=int(pos))
+        return self.logits(x)
+
+    def init_caches(self, batch: int, max_len: int) -> Caches:
+        return init_caches(self.cfg, batch, max_len, self.device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> Caches:
+    """One cache dict per layer: attention layers get a bf16 KV cache of
+    ``max_len`` positions, Mamba layers a float32 (conv, ssm) state."""
+    out: Caches = []
+    for _ in range(cfg.n_superblocks):
+        for kind in cfg.block_pattern:
+            out.append(init_kv_cache(cfg, batch, max_len, device)
+                       if kind.mixer == "attn"
+                       else init_mamba_cache(cfg, batch, device))
+    return out
+

@@ -77,12 +77,20 @@ from repro_torch.accel import GaussianFilter
 from repro_torch import convert, _build
 from repro_torch.kernels import approx_matmul, population_lut
 from repro_torch.core import strategies, surrogates
+from repro_torch.kernels import flash_attention, selective_scan
+from repro_torch.configs import get_config
+from repro_torch.models import reduced
+from repro_torch.launch.serve import serve_batch
 import numpy as np
 acc = GaussianFilter()
 lib = repro_torch.core.acl.library.default_library()
 g = np.stack([acc.exact_genome(lib)] * 2)
 labels = default_labeler(acc, lib, n_qor_samples=1, device="cpu")(g)
 assert labels["qor"][0] == 100.0
+for arch in ("falcon-mamba-7b", "granite-8b"):
+    tokens, _ = serve_batch(reduced(get_config(arch)), batch=2, prompt_len=8,
+                            gen=3, device="cpu")
+    assert tuple(tokens.shape) == (2, 11)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LEAKED", bad)
@@ -121,6 +129,12 @@ def test_static_scan_finds_no_reference_imports():
 
 
 def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.train.serve import Generator
+
+    lm = reduced(get_config("granite-8b"))
     acc = GaussianFilter()
     g = acc.exact_genome(LIB)[None]
     x = acc.sample_inputs(1)
@@ -132,11 +146,14 @@ def _entry_points():
         "simulate_batch": lambda: acc.simulate_batch(g, LIB, x),
         "run_dse": lambda: dse.run_dse(acc, LIB, dse.DSEConfig(
             **SMALL, nsga=NSGA2Config(**SMALL_NSGA))),
+        "serve_batch": lambda: serve_batch(lm, batch=1, prompt_len=4, gen=2),
+        "Generator": lambda: Generator(Transformer(lm)),
     }
 
 
 @pytest.mark.parametrize("name", ["default_labeler", "label_variants",
-                                  "qor_batch", "simulate_batch", "run_dse"])
+                                  "qor_batch", "simulate_batch", "run_dse",
+                                  "serve_batch", "Generator"])
 def test_entry_point_without_device_raises_without_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
