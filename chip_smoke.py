@@ -12,18 +12,22 @@ Phases, one JSON object per line on standard output:
    ptxas' register and shared-memory report.
 3. ``kernel``  — one line per kernel and shape: each kernel's wrapper on
    card tensors against its plain PyTorch version on the same inputs
-   (population_lut and lut_matmul byte-equal; rank_k within rtol 1e-5,
-   atol 0.5, with TF32 off; flash_attention in float32 within rtol 1e-4,
-   atol 1e-5 and in bf16 within one bf16 rounding of the output;
-   selective_scan within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4
-   at full width), both timed with CUDA events, and where one PyTorch
-   call computes the same function (the population gather's indexing,
+   (population_lut and lut_matmul byte-equal; rank_k, all nine slot
+   groups of a variant in one launch and one group at 1024^3, within
+   rtol 1e-5, atol 0.5, with TF32 off; flash attention in float32 on the
+   CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
+   tensor-core kernel (head dim 64 and 128, ragged and shifted-causal
+   rows included) within one bf16 rounding of the output; selective_scan
+   within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at full width),
+   both timed with CUDA events, and where one PyTorch call computes the
+   same function (the population gather's indexing,
    ``scaled_dot_product_attention``) that call too.
 4. ``labels``  — ``default_labeler(GaussianFilter(), lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes, then a
    second batch of 1000.  ``qor`` and ``energy`` must be bit-identical to
    ``device="cpu"`` on a 64-genome subset and to the per-genome numpy
-   ``Accelerator.qor`` on 8 genomes.
+   ``Accelerator.qor`` on 8 genomes; rank_k must launch exactly once per
+   unique variant synthesized.
 5. ``dse``     — ``run_dse`` on ``GaussianFilter`` at the paper's widths
    (n_train=1000, pop_size=1000, n_parents=200, 4 QoR images), with
    ``n_generations`` cut as the ``reduced`` field says; the front's labels
@@ -34,8 +38,9 @@ Phases, one JSON object per line on standard output:
    the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
    gen=32)``.  In one more prefill every layer's kernel call is held
    against the plain version on that layer's own inputs (the kernel
-   rows' tolerance).  The prefill's last-position logits with the
-   kernels are held against the same model with the plain attention /
+   rows' tolerance); granite's bf16 attention runs the tensor-core
+   kernel.  The prefill's last-position logits with the kernels are held
+   against the same model with the plain attention /
    scan, within max(0.12, 2 x the spread that the JAX model code's own
    chunked form of the function shows against the plain one in the same
    run; see ``LOGITS_TOL``), and the greedy tokens of both are compared.
@@ -70,13 +75,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM3 rate and
-# the float32 rate of the CUDA cores (outside the tensor cores).
+# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM3 rate, the
+# float32 rate of the CUDA cores (outside the tensor cores) and the bf16
+# dense rate of the tensor cores (where the bf16 flash kernel and
+# scaled_dot_product_attention run their products).
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
-
-# bf16 dense rate of the tensor cores (the yardstick for attention, which
-# scaled_dot_product_attention runs there)
 TENSOR_CORE_BF16_OPS_PER_S = 989e12
 
 RANK_RTOL, RANK_ATOL = 1e-5, 0.5     # as the JAX package's kernel tests
@@ -101,7 +105,10 @@ LOGITS_SPREAD_FACTOR = 2.0
 
 SERVE = dict(batch=8, prompt_len=1024, gen=32)
 
-# flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label)
+# flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label);
+# float32 and bf16 at d = 256 run the CUDA-core kernel, bf16 at d = 64
+# and 128 the tensor-core one (ops.KERNEL_ROUTES); one row at least for
+# every route of that table
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, 0, "float32", "JAX test shape"),
     (1, 4, 4, 256, 256, 64, 0, "float32", "JAX test shape"),
@@ -110,6 +117,13 @@ FLASH_CASES = [
      "decode offset, one query at position 1000"),
     (8, 32, 8, 1024, 1024, 128, 0, "bfloat16",
      "granite-8b prefill (serving shape), GQA 32/8"),
+    (1, 8, 2, 1000, 1000, 128, 0, "bfloat16",
+     "ragged, GQA 8/2: keys past 1000 zero-filled by TMA"),
+    (2, 8, 2, 200, 264, 128, 64, "bfloat16",
+     "ragged, causal mask shifted by q_offset 64"),
+    (1, 4, 4, 256, 256, 64, 0, "bfloat16", "head dim 64"),
+    (1, 8, 8, 512, 512, 256, 0, "bfloat16",
+     "head dim 256 (CUDA-core route)"),
 ]
 # selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
 # falcon-mamba-7b's prefill at the serving batch
@@ -123,8 +137,8 @@ SCAN_CASES = [(1, 16, 8, 4), (2, 64, 32, 8), (1, 128, 16, 16),
 MAIN_PATH = {
     "labels": ("population_lut", "rank_k"),
     "dse": ("population_lut", "rank_k"),
-    "serve_granite-8b": ("flash_attention",),
-    "serve_granite-8b_approx": ("flash_attention",),
+    "serve_granite-8b": ("flash_attention_sm90",),
+    "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "serve")
@@ -167,11 +181,13 @@ def time_ms(fn, *, repeats: int = 20, warmup: int = 3, runs: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(*, nbytes: float, ops: float) -> tuple:
+def bound(*, nbytes: float, ops: float,
+          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the CUDA-core rate."""
+    operations over the rate of the units that run them (the CUDA cores'
+    float32 rate unless the kernel's products run on the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -229,7 +245,8 @@ def _max_err(got, want) -> float:
 
 def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
                 compare, nbytes, ops, repeats=20, library_fn=None,
-                library_compare=None, plain_repeats=None, extra=None):
+                library_compare=None, plain_repeats=None, extra=None,
+                ops_per_s=CUDA_CORE_OPS_PER_S):
     import torch
 
     got = kernel_fn()
@@ -252,7 +269,7 @@ def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
     plain_ms = time_ms(plain_fn, repeats=plain_repeats or repeats)
     library_ms = (time_ms(library_fn, repeats=repeats)
                   if library_fn is not None else None)
-    b_ms, b_by = bound(nbytes=nbytes, ops=ops)
+    b_ms, b_by = bound(nbytes=nbytes, ops=ops, ops_per_s=ops_per_s)
     row = {"name": name, "case": case, "route": "cuda", "source": route_src,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -294,7 +311,8 @@ def phase_kernels(seed: int) -> list:
     from repro_torch.accel.gaussian import GAUSS_COEFFS, _im2col
     from repro_torch.core.acl.library import default_library
     from repro_torch.kernels.approx_matmul import (
-        from_circuit, lut_matmul, lut_matmul_kernel, rank_k_matmul,
+        from_circuit, grouped_rank_k_matmul, grouped_rank_k_matmul_kernel,
+        lut_matmul, lut_matmul_kernel, pack_groups, rank_k_matmul,
         rank_k_matmul_kernel,
     )
     from repro_torch.kernels.population_lut import (
@@ -355,8 +373,6 @@ def phase_kernels(seed: int) -> list:
     w9 = torch.from_numpy(GAUSS_COEFFS.reshape(9, 1).astype(np.int32)).to(dev)
     groups = [(x9[:, g:g + 1].contiguous(), w9[g:g + 1].contiguous(), sp)
               for g, sp in enumerate(specs)]
-    uv = [tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
-                for t in (sp.u, sp.v)) for sp in specs]
     tabs = [torch.from_numpy(sp.table).to(dev) for sp in specs]
 
     def all_groups(fn):
@@ -366,16 +382,21 @@ def phase_kernels(seed: int) -> list:
     ranks = sum(sp.rank for sp in specs)
     src = "src/repro_torch/csrc/rank_k.cu"
     rep = "src/repro/kernels/approx_matmul/kernel.py:72"
+    # the synthesis call of one variant: its nine groups packed on the
+    # host, uploaded with one copy and run in one launch (timed with the
+    # upload, as the main path runs it)
+    packed = pack_groups(specs, acc.slot_groups())
+    packed_dev = torch.from_numpy(packed).to(dev)
     rows.append(_kernel_row(
-        "rank_k", f"9 slot groups ({m9},1)@(1,1), ranks "
-        + ",".join(str(sp.rank) for sp in specs) + " (9 launches)",
+        "rank_k", f"9 slot groups ({m9},9)@(9,1), ranks "
+        + ",".join(str(sp.rank) for sp in specs)
+        + ", trunc " + ",".join(str(sp.trunc_bits) for sp in specs)
+        + " (1 launch)",
         src, rep,
-        all_groups(lambda i: rank_k_matmul_kernel(
-            groups[i][0], groups[i][1], *uv[i], signed=False)),
-        all_groups(lambda i: rank_k_matmul(
-            groups[i][0], groups[i][1], *uv[i], signed=False)),
+        lambda: grouped_rank_k_matmul_kernel(x9, w9, packed),
+        lambda: grouped_rank_k_matmul(x9, w9, packed_dev),
         _rank_close,
-        nbytes=9 * 4.0 * (2 * m9 + 1) + 2 * 256 * 4.0 * ranks,
+        nbytes=4.0 * (x9.numel() + w9.numel() + m9 + packed.size),
         ops=2.0 * m9 * (9 + ranks),
     ))
     for signed, cname in ((False, "mul8u_bam6"), (True, "mul8s_drum4")):
@@ -385,13 +406,16 @@ def phase_kernels(seed: int) -> list:
         lo, hi = (-128, 128) if signed else (0, 256)
         x = torch.from_numpy(rng.integers(lo, hi, (n, n)).astype(np.int32)).to(dev)
         w = torch.from_numpy(rng.integers(lo, hi, (n, n)).astype(np.int32)).to(dev)
-        u = torch.from_numpy(np.ascontiguousarray(f.u, np.float32)).to(dev)
-        v = torch.from_numpy(np.ascontiguousarray(f.v, np.float32)).to(dev)
+        # the wrapper packs its tables on the host: hand it host copies, so
+        # the timed call makes no device-to-host read
+        u_h = torch.from_numpy(np.ascontiguousarray(f.u, np.float32))
+        v_h = torch.from_numpy(np.ascontiguousarray(f.v, np.float32))
+        u, v = u_h.to(dev), v_h.to(dev)
         rows.append(_kernel_row(
             "rank_k", f"({n},{n})@({n},{n}) r={r} "
             + ("signed" if signed else "unsigned") + f" {cname}",
             src, rep,
-            lambda x=x, w=w, u=u, v=v, s=signed: rank_k_matmul_kernel(
+            lambda x=x, w=w, u=u_h, v=v_h, s=signed: rank_k_matmul_kernel(
                 x, w, u, v, signed=s),
             lambda x=x, w=w, u=u, v=v, s=signed: rank_k_matmul(
                 x, w, u, v, signed=s),
@@ -445,14 +469,15 @@ def _flash_rows(rng, dev) -> list:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        attention, flash_attention_kernel,
+        attention, flash_attention_kernel, kernel_route,
     )
 
-    src = "src/repro_torch/csrc/flash_attention.cu"
     rep = "src/repro/kernels/flash_attention/kernel.py:77"
     rows = []
     for b, h, kvh, sq, sk, d, off, dtype, label in FLASH_CASES:
         dt = getattr(torch, dtype)
+        route = kernel_route(dt, d)
+        tensor_cores = route == "flash_attention_sm90"
         def draw(*shape):
             return torch.from_numpy(
                 rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
@@ -462,15 +487,23 @@ def _flash_rows(rng, dev) -> list:
         pairs = _causal_pairs(sq, sk, off, True) * b * h
         ops = 4.0 * d * pairs              # q.k and p.v, 2 flops per FMA
         nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
-        library_fn = None
-        if bf16:
+        if sq == sk and off == 0:
             library_fn = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            # SDPA's is_causal aligns the mask to the top-left corner; a
+            # shifted mask (j <= i + q_offset) goes in as a boolean mask,
+            # built outside the timed region
+            mask = (torch.arange(sk, device=dev)[None, :]
+                    <= torch.arange(sq, device=dev)[:, None] + off)
+            library_fn = (
+                lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True))
         rows.append(_kernel_row(
-            "flash_attention",
+            route,
             f"b={b} h={h} kvh={kvh} sq={sq} sk={sk} d={d} q_offset={off} "
             f"{'bf16' if bf16 else 'f32'} causal ({label})",
-            src, rep,
+            f"src/repro_torch/csrc/{route}.cu", rep,
             lambda q=q, k=k, v=v, off=off: flash_attention_kernel(
                 q, k, v, causal=True, q_offset=off),
             lambda q=q, k=k, v=v, off=off: attention(
@@ -482,6 +515,8 @@ def _flash_rows(rng, dev) -> list:
             extra={"tensor_core_bound_ms": max(
                 nbytes / HBM_BYTES_PER_S, ops / TENSOR_CORE_BF16_OPS_PER_S)
                 * 1e3},
+            ops_per_s=(TENSOR_CORE_BF16_OPS_PER_S if tensor_cores
+                       else CUDA_CORE_OPS_PER_S),
         ))
     return rows
 
@@ -564,7 +599,9 @@ def phase_labels(seed: int) -> dict:
     g2 = _random_genomes(acc, lib, 1000, rng)
 
     _build.reset_launches()
-    labeler = default_labeler(acc, lib, n_qor_samples=4, device="cuda")
+    synth_cache: dict = {}   # one entry per unique variant synthesized
+    labeler = default_labeler(acc, lib, n_qor_samples=4, cache=synth_cache,
+                              device="cuda")
     t0 = time.perf_counter()
     lab1 = labeler(g1)
     torch.cuda.synchronize()
@@ -579,6 +616,9 @@ def phase_labels(seed: int) -> dict:
     check(lab1["qor"][0] == 100.0, "exact genome's QoR is not 100.0")
     for k in MAIN_PATH["labels"]:
         check(launches[k] > 0, f"labels phase launched no {k} kernel")
+    check(launches["rank_k"] == len(synth_cache),
+          f"labels phase launched rank_k {launches['rank_k']} times for "
+          f"{len(synth_cache)} unique variants synthesized")
     sub = 64
     cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(g1[:sub])
     for k in ("qor", "energy"):
@@ -598,6 +638,7 @@ def phase_labels(seed: int) -> dict:
         "synth_s": [float(lab1["synth_time"].sum()),
                     float(lab2["synth_time"].sum())],
         "cpu_subset_bit_identical": {"genomes": sub, "keys": ["qor", "energy"]},
+        "unique_variants_synthesized": len(synth_cache),
         "launches": launches,
     }
     emit(out)
@@ -746,7 +787,7 @@ def _per_layer_check(model, prompts, kernel: str) -> dict:
     from repro_torch.train.serve import make_prefill_step
 
     worst, differ, total = 0.0, 0, 0
-    if kernel == "flash_attention":
+    if kernel == "flash_attention_sm90":
         mod, attr = attn_mod, "attn_op"
         compare = _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL)
     else:
@@ -788,7 +829,7 @@ def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
 
     from repro_torch.train.serve import make_decode_step, make_prefill_step
 
-    kname = {"flash_attention": "flash_fwd_kernel",
+    kname = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
              "selective_scan": "selective_scan_kernel"}[kernel]
     b, L = prompts.shape
     caches = model.init_caches(b, L + steps + 1)
@@ -867,12 +908,13 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     check(torch.equal(tokens[:, :L].cpu(), prompts.to(torch.int32)),
           f"{name}: prompt not carried into the tokens")
     kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
-    n_layers = {"flash_attention": sum(k.mixer == "attn" for k in kinds),
+    n_layers = {"flash_attention_sm90": sum(k.mixer == "attn"
+                                            for k in kinds),
                 "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
     for k in MAIN_PATH[name]:
-        check(launches[k] >= n_layers[k],
-              f"{name}: {k} launched {launches[k]} times, fewer than the "
-              f"{n_layers[k]} layers that run it")
+        check(launches[k] == n_layers[k],
+              f"{name}: {k} launched {launches[k]} times in one request, "
+              f"not once for each of the {n_layers[k]} layers that run it")
 
     # kernel route against the plain route, same model and prompts
     logits = {}
@@ -894,7 +936,8 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     import repro_torch.models.ssm as ssm_mod
 
     mod, attr, form = {
-        "flash_attention": (attn_mod, "attn_op", _chunked_form_attention),
+        "flash_attention_sm90": (attn_mod, "attn_op",
+                                 _chunked_form_attention),
         "selective_scan": (ssm_mod, "selective_scan", _chunked_form_scan),
     }[kernel]
     orig = getattr(mod, attr)

@@ -49,8 +49,8 @@ KERNELS: Dict[str, tuple] = {
     # (lut, genes, cols, out, C, S, G, M, per_genome, stream)
     "population_lut": ("population_lut_gather",
                        [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P]),
-    # (x, w, u, v, out, m, n, k, r, offset, stream)
-    "rank_k": ("rank_k_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (x, w, packed groups, out, m, n, k, groups, table floats, stream)
+    "rank_k": ("rank_k_grouped", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (x, w, table, out, m, n, k, offset, stream)
     "lut_matmul": ("lut_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale,
@@ -58,6 +58,10 @@ KERNELS: Dict[str, tuple] = {
     "flash_attention": ("flash_attention_fwd",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _I, _P]),
+    # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale, stream)
+    "flash_attention_sm90": ("flash_attention_sm90_fwd",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P]),
     # (x, dt, A, B, C, h0, y, hT, b, s, di, n, stream)
     "selective_scan": ("selective_scan_fwd",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

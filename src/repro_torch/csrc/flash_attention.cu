@@ -13,11 +13,13 @@
 //   scales q in the input dtype before the cast; that one bf16 rounding
 //   of difference is absorbed by the model-level tolerance.
 //
-// What bounds it on an H100: operations.  At the serving shape (b=8,
-// H=32, KVH=8, s=1024, d=128, causal) the two products are ~69 GFLOP of
-// fp32 FMAs against ~67 MB of bf16 q/k/v/out.  This first version runs
-// them on the CUDA cores in fp32 (67 TFLOP/s peak); the tensor cores
-// (wgmma, 989 TFLOP/s in bf16) are a later optimisation.
+// Route: ops.py's dispatch table sends float32 inputs (any head dim) and
+// bf16 at d = 256 here; bf16 at d = 64 and 128, which the models serve,
+// runs on the tensor cores in flash_attention_sm90.cu.
+//
+// What bounds it on an H100: operations.  At d=128 (b=1, H=8, KVH=2,
+// s=1000, causal, float32) the two products are ~2 GFLOP of fp32 FMAs,
+// which this kernel runs on the CUDA cores (67 TFLOP/s peak).
 //
 // Design: one block of 256 threads (8 warps) per (64-query tile, head,
 // batch row).  Q (pre-scaled) and each 64-key K/V tile are staged in

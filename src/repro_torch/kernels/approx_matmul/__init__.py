@@ -4,14 +4,17 @@ from .ops import (
     dequantize,
     from_circuit,
     grouped_matmul,
+    grouped_rank_k_matmul_kernel,
     lut_matmul_kernel,
+    pack_groups,
     quantize_sym,
     rank_k_matmul_kernel,
 )
-from .ref import lut_matmul, rank_k_matmul
+from .ref import grouped_rank_k_matmul, lut_matmul, rank_k_matmul
 
 __all__ = [
     "ApproxSpec", "from_circuit", "approx_matmul", "grouped_matmul",
     "quantize_sym", "dequantize",
     "lut_matmul", "rank_k_matmul", "lut_matmul_kernel", "rank_k_matmul_kernel",
+    "pack_groups", "grouped_rank_k_matmul", "grouped_rank_k_matmul_kernel",
 ]

@@ -7,10 +7,12 @@ implements the per-slot assignment semantics of the DSE: the K
 (contraction) axis is partitioned into slot groups, each with its own
 circuit.
 
-The two kernel wrappers dispatch on the tensor's device: on a CUDA
-tensor ``rank_k_matmul_kernel`` launches ``csrc/rank_k.cu`` and
-``lut_matmul_kernel`` launches ``csrc/lut_matmul.cu`` (or raise); on a
-CPU tensor they run the plain versions in ``ref``.
+The kernel wrappers dispatch on the tensor's device: on a CUDA tensor
+``grouped_rank_k_matmul_kernel`` (every slot group of a variant, packed
+by ``pack_groups``) and ``rank_k_matmul_kernel`` (one group) launch
+``csrc/rank_k.cu`` once, and ``lut_matmul_kernel`` launches
+``csrc/lut_matmul.cu`` (or raise); on a CPU tensor they run the plain
+versions in ``ref``.
 
 Also provides the symmetric int8 quantization helpers that put float
 tensors into the 8-bit circuit domain.
@@ -32,6 +34,8 @@ __all__ = [
     "from_circuit",
     "approx_matmul",
     "grouped_matmul",
+    "pack_groups",
+    "grouped_rank_k_matmul_kernel",
     "rank_k_matmul_kernel",
     "lut_matmul_kernel",
     "quantize_sym",
@@ -121,31 +125,107 @@ def _check_cuda(x, w, signed: bool, *tables) -> int:
     return 128 if signed else 0
 
 
-def rank_k_matmul_kernel(
-    x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-    *, signed: bool = False,
-) -> torch.Tensor:
-    """(m, n) float32 ``x @ w + sum_r U[x] @ V[w]``."""
-    _check_operands(x, w)
-    if u.shape != v.shape or u.dim() != 2 or u.shape[0] != 256:
-        raise ValueError(f"u, v must be (256, r), got {tuple(u.shape)}, "
-                         f"{tuple(v.shape)}")
-    if x.device.type == "cpu":
-        return ref.rank_k_matmul(x, w, u, v, signed=signed)
-    if u.dtype != torch.float32 or v.dtype != torch.float32:
-        raise ValueError("u, v must be float32")
-    r = u.shape[1]
-    if 2 * 256 * r * 4 + 2 * 16 * 17 * 4 > 232448:
-        raise ValueError(f"rank {r} too large for the U/V shared-memory stage")
-    off = _check_cuda(x, w, signed, u, v)
+# shared memory a block may have, less the kernel's two static 16x16 tiles
+_RANK_K_SMEM = 232448 - 2 * 16 * 17 * 4
+
+
+def _pack(groups) -> np.ndarray:
+    """The packed int32 layout of the rank-k kernel, written here only:
+    ``[G, G x (start, stop, rank, table offset, index offset, truncation
+    bits), then each group's U and V as float32]``.  ``groups`` holds
+    ``(start, stop, u, v, signed, truncation bits)`` per group."""
+    if not groups:
+        raise ValueError("no slot groups")
+    desc, tables, at = [len(groups)], [], 0
+    for s, e, u, v, signed, tb in groups:
+        u, v = (np.ascontiguousarray(t, np.float32) for t in (u, v))
+        if u.shape != v.shape or u.ndim != 2 or u.shape[0] != 256:
+            raise ValueError(f"u, v must be (256, r), got {u.shape}, "
+                             f"{v.shape}")
+        r = u.shape[1]
+        desc += [s, e, r, at, 128 if signed else 0, tb]
+        tables += [u.reshape(-1), v.reshape(-1)]
+        at += 512 * r
+    return np.concatenate([np.asarray(desc, np.int32),
+                           np.concatenate(tables).view(np.int32)])
+
+
+def pack_groups(specs: Sequence[ApproxSpec],
+                groups: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """One variant's slot groups in the packed layout of the rank-k
+    kernel (``_pack``)."""
+    if len(specs) != len(groups):
+        raise ValueError(f"{len(specs)} specs for {len(groups)} groups")
+    return _pack([(s, e, spec.u, spec.v, spec.signed, spec.trunc_bits)
+                  for spec, (s, e) in zip(specs, groups)])
+
+
+def _check_packed(packed: np.ndarray, k: int) -> Tuple[int, int]:
+    """(groups, table floats) of a packed layout; raises on a descriptor
+    that reads outside the contraction or the tables."""
+    n_groups = int(packed[0]) if packed.size else 0
+    n_uv = packed.size - 1 - ref.DESC_WORDS * n_groups
+    if n_groups < 1 or n_uv < 0:
+        raise ValueError("malformed packed groups")
+    for g in range(n_groups):
+        s, e, r, at, off, tb = (int(a) for a in packed[
+            1 + ref.DESC_WORDS * g:1 + ref.DESC_WORDS * (g + 1)])
+        if not (0 <= s <= e <= k and r >= 0 and 0 <= at
+                and at + 512 * r <= n_uv and off in (0, 128)
+                and 0 <= tb < 8):
+            raise ValueError(f"group {g} ({s}, {e}, r={r}, at={at}, "
+                             f"offset={off}, trunc={tb}) outside a "
+                             f"contraction of {k} and {n_uv} table floats")
+    return n_groups, n_uv
+
+
+def _check_smem(n_groups: int, n_uv: int) -> None:
+    """The card's cap: the kernel stages every group's tables and
+    descriptors in one block's shared memory."""
+    if 4 * (n_uv + ref.DESC_WORDS * n_groups) > _RANK_K_SMEM:
+        raise ValueError(f"ranks too large for the U/V shared-memory stage "
+                         f"({n_uv} table floats)")
+
+
+def _launch_rank_k(x, w, packed: np.ndarray, n_groups: int,
+                   n_uv: int) -> torch.Tensor:
+    _check_cuda(x, w, False)
+    _check_smem(n_groups, n_uv)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    _build.call("rank_k", x.device, x.data_ptr(), w.data_ptr(), u.data_ptr(),
-                v.data_ptr(), out.data_ptr(), m, n, k, r, off)
+    packed = torch.from_numpy(packed).to(x.device)
+    _build.call("rank_k", x.device, x.data_ptr(), w.data_ptr(),
+                packed.data_ptr(), out.data_ptr(), m, n, k, n_groups, n_uv)
     return out
+
+
+def grouped_rank_k_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
+                                 packed: np.ndarray) -> torch.Tensor:
+    """(m, n) float32: every slot group of ``packed`` (``pack_groups``)
+    on its contraction range, partials summed in group order.  On a CUDA
+    tensor the layout is uploaded with one copy and the kernel launches
+    once."""
+    _check_operands(x, w)
+    packed = np.ascontiguousarray(packed, np.int32)
+    n_groups, n_uv = _check_packed(packed, x.shape[1])
+    if x.device.type == "cpu":
+        return ref.grouped_rank_k_matmul(x, w, torch.from_numpy(packed))
+    return _launch_rank_k(x, w, packed, n_groups, n_uv)
+
+
+def rank_k_matmul_kernel(
+    x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+    *, signed: bool = False,
+) -> torch.Tensor:
+    """(m, n) float32 ``x @ w + sum_r U[x] @ V[w]``: the grouped kernel
+    with one group over the whole contraction."""
+    _check_operands(x, w)
+    u, v = (t.detach().float().cpu().numpy() for t in (u, v))
+    return grouped_rank_k_matmul_kernel(
+        x, w, _pack([(0, x.shape[1], u, v, signed, 0)]))
 
 
 def lut_matmul_kernel(
@@ -175,12 +255,6 @@ def lut_matmul_kernel(
 
 # --- the two routes -----------------------------------------------------------
 
-def _mask(t: torch.Tensor, trunc: int) -> torch.Tensor:
-    # native reduced-width deployment: the truncation IS the circuit.
-    # Sign-magnitude masking matches the behavioural mul8s wrapper.
-    return torch.sign(t) * ((torch.abs(t) >> trunc) << trunc)
-
-
 def approx_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -191,26 +265,21 @@ def approx_matmul(
     """Approximate ``x @ w`` under one circuit spec, float32 out.
 
     path="mxu": deployment semantics — for truncation circuits the
-    operands are masked to the circuit's width first, then the rank-k
-    kernel runs.  path="lut": behavioural bit-exact semantics through
-    the circuit's product table."""
-    dev = x.device
+    operands are masked to the circuit's width first (in the rank-k
+    kernel, on load), then the rank-k product runs.  path="lut":
+    behavioural bit-exact semantics through the circuit's product
+    table."""
+    if path == "mxu":
+        return grouped_matmul(x, w, [spec], [(0, x.shape[1])])
+    if path != "lut":
+        raise ValueError(f"unknown path {path!r}")
+    if spec.table is None:
+        raise ValueError(f"spec {spec.name} carries no product table")
     x = x.to(torch.int32).contiguous()
     w = w.to(torch.int32).contiguous()
-    if path == "lut":
-        if spec.table is None:
-            raise ValueError(f"spec {spec.name} carries no product table")
-        table = torch.as_tensor(spec.table, dtype=torch.int32, device=dev)
-        return lut_matmul_kernel(
-            x, w, table.contiguous(), signed=spec.signed).float()
-    if path != "mxu":
-        raise ValueError(f"unknown path {path!r}")
-    if spec.trunc_bits:
-        x = _mask(x, spec.trunc_bits).contiguous()
-        w = _mask(w, spec.trunc_bits).contiguous()
-    u = torch.as_tensor(spec.u, dtype=torch.float32, device=dev).contiguous()
-    v = torch.as_tensor(spec.v, dtype=torch.float32, device=dev).contiguous()
-    return rank_k_matmul_kernel(x, w, u, v, signed=spec.signed)
+    table = torch.as_tensor(spec.table, dtype=torch.int32, device=x.device)
+    return lut_matmul_kernel(
+        x, w, table.contiguous(), signed=spec.signed).float()
 
 
 def grouped_matmul(
@@ -222,9 +291,17 @@ def grouped_matmul(
     path: str = "mxu",
 ) -> torch.Tensor:
     """Per-slot-group approximate matmul: contraction columns [s, e) of
-    group g use circuit specs[g]; the partials are summed."""
+    group g use circuit specs[g]; the partials are summed in group order.
+    path="mxu" packs the groups on the host and runs them all in one
+    rank-k launch; path="lut" runs one table matmul per group."""
     if len(specs) != len(groups):
         raise ValueError(f"{len(specs)} specs for {len(groups)} groups")
+    if path == "mxu":
+        return grouped_rank_k_matmul_kernel(
+            x.to(torch.int32).contiguous(), w.to(torch.int32).contiguous(),
+            pack_groups(specs, groups))
+    if path != "lut":
+        raise ValueError(f"unknown path {path!r}")
     out = None
     for spec, (s, e) in zip(specs, groups):
         part = approx_matmul(x[:, s:e], w[s:e, :], spec, path=path)

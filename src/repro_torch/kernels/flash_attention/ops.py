@@ -1,7 +1,13 @@
-"""The attention op of the port: the flash-attention forward kernel
-(``csrc/flash_attention.cu``) or its plain version.
+"""The attention op of the port: a flash-attention forward kernel or its
+plain version.
 
-``impl="kernel"`` (the default) launches the CUDA kernel on a CUDA
+Two hand-written kernels compute the function; ``KERNEL_ROUTES`` picks
+one by (dtype, head dim): bf16 at d = 64 and 128 runs on the tensor
+cores (``csrc/flash_attention_sm90.cu``, wgmma + TMA), float32 and bf16
+at d = 256 on the CUDA cores (``csrc/flash_attention.cu``).  Anything
+else raises.
+
+``impl="kernel"`` (the default) launches the routed kernel on a CUDA
 tensor, or raises; on a CPU tensor it runs the plain version.
 ``impl="plain"`` runs the plain version on any device: an explicit
 choice (``chip_smoke.py`` makes it for its comparisons), never a
@@ -15,12 +21,33 @@ import torch
 from ... import _build
 from .ref import attention_ref
 
-__all__ = ["attention", "flash_attention_kernel", "KERNEL_HEAD_DIMS"]
+__all__ = ["attention", "flash_attention_kernel", "kernel_route",
+           "KERNEL_ROUTES"]
 
-# head dims the kernel is instantiated for (its shared-memory stage is
-# sized per head dim; 256 needs 213 KB of the 227 KB a block may have)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# (dtype, head dim) -> the kernel that takes it.  The tensor-core kernel
+# is instantiated for d = 64 and 128 (granite-8b serves 128); the
+# CUDA-core kernel's shared-memory stage is sized per head dim, and 256
+# needs 213 KB of the 227 KB a block may have.
+KERNEL_ROUTES = {
+    (torch.bfloat16, 64): "flash_attention_sm90",
+    (torch.bfloat16, 128): "flash_attention_sm90",
+    (torch.bfloat16, 256): "flash_attention",
+    (torch.float32, 64): "flash_attention",
+    (torch.float32, 128): "flash_attention",
+    (torch.float32, 256): "flash_attention",
+}
+# dtype argument of the CUDA-core kernel's entry point
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel (a ``_build.KERNELS`` name) that takes ``dtype`` at head
+    dim ``d``; raises if none does."""
+    route = KERNEL_ROUTES.get((dtype, d))
+    if route is None:
+        raise ValueError(f"no flash-attention kernel takes {dtype} at head "
+                         f"dim {d}: routes are {sorted(KERNEL_ROUTES, key=str)}")
+    return route
 
 
 def _check(q, k, v, q_offset):
@@ -41,30 +68,33 @@ def _check(q, k, v, q_offset):
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True,
                            q_offset: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel: (b, h, sq, d) in q's dtype."""
+    """Launch the routed CUDA kernel: (b, h, sq, d) in q's dtype."""
     _check(q, k, v, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    route = kernel_route(q.dtype, d)
     if max(h, b) > 65535:
         raise ValueError(f"{b} batch rows x {h} heads outside the kernel's "
                          "grid")
     if sk < 1:
         raise ValueError("no keys to attend to")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the tensor maps of the tensor-core kernel need 16-byte aligned bases
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.call("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, h, kvh, sq, sk, d,
-                int(bool(causal)), int(q_offset), float(d ** -0.5),
-                _DTYPES[q.dtype])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kvh, sq, sk, d, int(bool(causal)), int(q_offset),
+            float(d ** -0.5))
+    if route == "flash_attention":
+        args += (_DTYPES[q.dtype],)
+    _build.call(route, q.device, *args)
     return out
 
 
