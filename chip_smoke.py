@@ -18,10 +18,15 @@ Phases, one JSON object per line on standard output:
    CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
    tensor-core kernel (head dim 64 and 128, ragged and shifted-causal
    rows included) within one bf16 rounding of the output; selective_scan
-   within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at full width),
-   both timed with CUDA events, and where one PyTorch call computes the
-   same function (the population gather's indexing,
-   ``scaled_dot_product_attention``) that call too.
+   within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at b * di > 4096,
+   ragged edges of both kernels' tiling included), both timed with CUDA
+   events, and where one PyTorch call computes the same function (the
+   population gather's indexing, ``scaled_dot_product_attention``) that
+   call too.  Each row's bound is the largest of bytes over the HBM rate,
+   operations over the rate of the units that run them and, for the
+   scan's and the softmax's exponentials, their least time split between
+   the SFUs and the float32 lanes (each term in ``bound_terms_ms``, with
+   the exponentials' time on the SFUs alone for the record).
 4. ``labels``  — ``default_labeler(GaussianFilter(), lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes, then a
    second batch of 1000.  ``qor`` and ``energy`` must be bit-identical to
@@ -82,6 +87,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 TENSOR_CORE_BF16_OPS_PER_S = 989e12
+# float32 instruction rate: 128 lanes an SM x 132 SMs x 1.98 GHz, the
+# clock at which they give the data sheet's 67 TFLOP/s (an FMA counts 2)
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# exponentials on the special-function units (MUFU.EX2): 16 results a
+# clock on each SM (CUDA C++ Programming Guide, throughput of arithmetic
+# instructions, base-2 exponential at compute capability 9.0)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# an exp2 can run on the float32 lanes instead: round off the integer
+# part, a short polynomial of the fraction, an integer add into the
+# exponent bits, about 7 instructions
+EXP2_FP32_INSTRS = 7
 
 RANK_RTOL, RANK_ATOL = 1e-5, 0.5     # as the JAX package's kernel tests
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5  # tests/test_kernels.py
@@ -126,9 +142,18 @@ FLASH_CASES = [
      "head dim 256 (CUDA-core route)"),
 ]
 # selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
-# falcon-mamba-7b's prefill at the serving batch
-SCAN_CASES = [(1, 16, 8, 4), (2, 64, 32, 8), (1, 128, 16, 16),
-              (8, 1024, 8192, 16)]
+# falcon-mamba-7b's prefill at the serving batch, then ragged edges of the
+# kernel's tiling (tiles of 16 steps in groups of 4, blocks of 64
+# channels): s no multiple of the tile or of the step group, di no
+# multiple of the block (2050 and 13 no multiple of 4 either: 4-byte
+# copies and stores), n = 5 and n = 16 at b * di > 4096, and n = 3 at a
+# JAX-test size
+SCAN_CASES = [(1, 16, 8, 4, "JAX test shape"),
+              (2, 64, 32, 8, "JAX test shape"),
+              (1, 128, 16, 16, "JAX test shape"),
+              (8, 1024, 8192, 16, "falcon-mamba-7b prefill width"),
+              (2, 1001, 4100, 16, "ragged"), (2, 999, 2050, 5, "ragged"),
+              (1, 37, 13, 3, "ragged")]
 
 # kernels each main-path phase must launch: the population gather of every
 # QoR label and the rank-k deployment graph that synthesis runs; the
@@ -181,14 +206,36 @@ def time_ms(fn, *, repeats: int = 20, warmup: int = 3, runs: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(*, nbytes: float, ops: float,
-          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+def bound_terms(*, nbytes: float, ops: float, exps: float = 0.0,
+                ops_per_s: float = CUDA_CORE_OPS_PER_S) -> dict:
+    """Least card time in ms of each resource: bytes over the HBM rate;
     operations over the rate of the units that run them (the CUDA cores'
-    float32 rate unless the kernel's products run on the tensor cores)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    float32 rate unless the kernel's products run on the tensor cores);
+    the exponentials on the SFUs alone (for the record, not a bound); and
+    the exponentials split between the SFUs and the float32 lanes, which
+    also run the row's CUDA-core operations.  The split's least time is
+    max(F / R_f, (F + k E) / (R_f + k R_s)) in float32-lane time F, E
+    exponentials, k lane instructions an exp2, lane and SFU rates R_f,
+    R_s: the first where the SFUs take every exponential within F."""
+    t_ops = ops / ops_per_s
+    t_lanes = t_ops if ops_per_s == CUDA_CORE_OPS_PER_S else 0.0
+    k = EXP2_FP32_INSTRS
+    t_split = ((t_lanes + k * exps / FP32_INSTR_PER_S)
+               / (1 + k * SFU_EXP_PER_S / FP32_INSTR_PER_S))
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": t_ops * 1e3,
+            "exps_sfu_only": exps / SFU_EXP_PER_S * 1e3,
+            "exps_sfu_and_lanes": max(t_lanes, t_split) * 1e3}
+
+
+def bound(**terms) -> tuple:
+    """(bound_ms, bound_by): the largest of bytes, operations and the
+    exponentials split between the SFUs and the float32 lanes (which
+    count as operations)."""
+    t = bound_terms(**terms)
+    t_ops = max(t["operations"], t["exps_sfu_and_lanes"])
+    return ((t["bytes"], "bytes") if t["bytes"] >= t_ops
+            else (t_ops, "operations"))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +293,7 @@ def _max_err(got, want) -> float:
 def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
                 compare, nbytes, ops, repeats=20, library_fn=None,
                 library_compare=None, plain_repeats=None, extra=None,
-                ops_per_s=CUDA_CORE_OPS_PER_S):
+                ops_per_s=CUDA_CORE_OPS_PER_S, exps=0.0):
     import torch
 
     got = kernel_fn()
@@ -269,11 +316,13 @@ def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
     plain_ms = time_ms(plain_fn, repeats=plain_repeats or repeats)
     library_ms = (time_ms(library_fn, repeats=repeats)
                   if library_fn is not None else None)
-    b_ms, b_by = bound(nbytes=nbytes, ops=ops, ops_per_s=ops_per_s)
+    terms = dict(nbytes=nbytes, ops=ops, exps=exps, ops_per_s=ops_per_s)
+    b_ms, b_by = bound(**terms)
     row = {"name": name, "case": case, "route": "cuda", "source": route_src,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library_ms, **(extra or {})}
+           "library_ms": library_ms, "bound_terms_ms": bound_terms(**terms),
+           **(extra or {})}
     if library_err is not None:
         row["library_max_abs_err"] = library_err
     emit({"phase": "kernel", **row})
@@ -333,34 +382,39 @@ def phase_kernels(seed: int) -> list:
     lut = fused.build_engine(lib, dev).lut("mul8u", GAUSS_COEFFS,
                                            tag=acc.name)
     C, S, _ = lut.shape
-    G = 1000
-    genes = torch.from_numpy(
-        rng.integers(0, C, size=(G, S)).astype(np.int32)).to(dev)
-    cols = torch.from_numpy(np.ascontiguousarray(
+    cols_all = torch.from_numpy(np.ascontiguousarray(
         _im2col(acc.sample_inputs(4, seed=1234)), dtype=np.int32)).to(dev)
-    M = cols.shape[0]
-    # the library call: one advanced-indexing gather, its int64 index
-    # tensors built outside the timed region
-    g_l = genes.long()[:, None, :]
     s_l = torch.arange(S, device=dev)
-    for per_genome in (False, True):
-        c = cols if not per_genome else torch.from_numpy(
-            rng.integers(0, 256, size=(G, M, S)).astype(np.int32)).to(dev)
-        c_l = c.long() if per_genome else c.long()[None]
-        rows.append(_kernel_row(
-            "population_lut",
-            f"G={G} M={M} S={S} C={C} "
-            + ("per-genome cols" if per_genome else "shared cols"),
-            src, rep,
-            lambda c=c, p=per_genome: population_lut_gather(
-                lut, genes, c, per_genome=p),
-            lambda c=c, p=per_genome: population_lut_gather_ref(
-                lut, genes, c, per_genome=p),
-            _byte_equal,
-            nbytes=4.0 * (lut.numel() + genes.numel() + c.numel() + G * M * S),
-            ops=0.0,
-            library_fn=lambda c_l=c_l: lut[g_l, s_l, c_l],
-        ))
+    # the label batch, then a ragged one: G no multiple of the kernel's 4
+    # genomes a block, the plane M * S = 32391 no multiple of 4 (4-byte
+    # loads and stores)
+    for G, M, what in ((1000, cols_all.shape[0], ""),
+                       (999, cols_all.shape[0] - 1, ", ragged")):
+        genes = torch.from_numpy(
+            rng.integers(0, C, size=(G, S)).astype(np.int32)).to(dev)
+        cols = cols_all[:M].contiguous()
+        # the library call: one advanced-indexing gather, its int64 index
+        # tensors built outside the timed region
+        g_l = genes.long()[:, None, :]
+        for per_genome in (False, True):
+            c = cols if not per_genome else torch.from_numpy(
+                rng.integers(0, 256, size=(G, M, S)).astype(np.int32)).to(dev)
+            c_l = c.long() if per_genome else c.long()[None]
+            rows.append(_kernel_row(
+                "population_lut",
+                f"G={G} M={M} S={S} C={C} "
+                + ("per-genome cols" if per_genome else "shared cols") + what,
+                src, rep,
+                lambda g=genes, c=c, p=per_genome: population_lut_gather(
+                    lut, g, c, per_genome=p),
+                lambda g=genes, c=c, p=per_genome: population_lut_gather_ref(
+                    lut, g, c, per_genome=p),
+                _byte_equal,
+                nbytes=4.0 * (lut.numel() + genes.numel() + c.numel()
+                              + G * M * S),
+                ops=0.0,
+                library_fn=lambda g_l=g_l, c_l=c_l: lut[g_l, s_l, c_l],
+            ))
 
     # rank_k and lut_matmul at the nine gaussian slot groups of a variant
     # covering ranks 0..4, then at larger square shapes
@@ -517,6 +571,7 @@ def _flash_rows(rng, dev) -> list:
                 * 1e3},
             ops_per_s=(TENSOR_CORE_BF16_OPS_PER_S if tensor_cores
                        else CUDA_CORE_OPS_PER_S),
+            exps=float(pairs),   # one softmax exponential per visible pair
         ))
     return rows
 
@@ -532,7 +587,7 @@ def _scan_rows(rng, dev) -> list:
     src = "src/repro_torch/csrc/selective_scan.cu"
     rep = "src/repro/kernels/selective_scan/kernel.py:66"
     rows = []
-    for b, s, di, n in SCAN_CASES:
+    for b, s, di, n, label in SCAN_CASES:
         # drawn as _inputs in tests/test_kernels_scan.py
         arrs = (rng.standard_normal((b, s, di)),
                 rng.uniform(0.01, 0.2, (b, s, di)),
@@ -545,10 +600,7 @@ def _scan_rows(rng, dev) -> list:
         wide = b * di > 4096
         tol = SCAN_WIDE_TOL if wide else SCAN_RTOL
         rows.append(_kernel_row(
-            "selective_scan",
-            f"b={b} s={s} di={di} n={n} f32"
-            + (" (falcon-mamba-7b prefill width)" if wide
-               else " (JAX test shape)"),
+            "selective_scan", f"b={b} s={s} di={di} n={n} f32 ({label})",
             src, rep,
             lambda x=x, dt=dt, A=A, B=B, C=C, h0=h0: selective_scan_kernel(
                 x, dt, A, B, C, h0),
@@ -558,6 +610,7 @@ def _scan_rows(rng, dev) -> list:
             nbytes=4.0 * (3 * b * s * di + 2 * b * s * n + di * n
                           + 2 * b * di * n),
             ops=float(b) * s * di * (7 * n + 1),
+            exps=float(b) * s * di * n,
             repeats=10 if wide else 20, plain_repeats=2 if wide else 5,
         ))
     return rows

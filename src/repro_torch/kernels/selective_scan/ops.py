@@ -18,7 +18,7 @@ from .ref import selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_kernel", "KERNEL_MAX_STATE"]
 
-# the kernel keeps a channel's n states in registers
+# the kernel keeps a channel's n states in registers, 4 to a thread
 KERNEL_MAX_STATE = 16
 
 
@@ -46,14 +46,14 @@ def selective_scan_kernel(x, dt, A, B, C, h0=None):
     """Launch the CUDA kernel: (y (b, s, di), h_final (b, di, n)),
     float32."""
     _check(x, dt, A, B, C, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"the kernel runs on a CUDA device, not {x.device}")
     b, s, di = x.shape
     n = A.shape[1]
     if not 1 <= n <= KERNEL_MAX_STATE:
         raise ValueError(f"state size {n} outside 1..{KERNEL_MAX_STATE}")
     if b > 65535:
         raise ValueError(f"batch {b} outside the kernel's grid")
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {x.device}")
     x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
     if h0 is None:
         h0 = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
