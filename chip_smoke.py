@@ -23,10 +23,16 @@ Phases, one JSON object per line on standard output:
    events, and where one PyTorch call computes the same function (the
    population gather's indexing, ``scaled_dot_product_attention``) that
    call too.  Each row's bound is the largest of bytes over the HBM rate,
-   operations over the rate of the units that run them and, for the
-   scan's and the softmax's exponentials, their least time split between
-   the SFUs and the float32 lanes (each term in ``bound_terms_ms``, with
-   the exponentials' time on the SFUs alone for the record).
+   operations over the rate of the units that run them, the LUT
+   matmul's table lookups over the shared-memory lookup rate and, for
+   the scan's and the softmax's exponentials, their least time split
+   between the SFUs and the float32 lanes (each term in
+   ``bound_terms_ms``, with the exponentials' time on the SFUs alone for
+   the record).  The LUT matmul has rows on both of its routes
+   (``LUT_CASES``: ragged edges, k = 33000 at the int32 edge, n = 1, a
+   table wider than 16 bits, conflict-free operands, both sides of the
+   route crossover), and a ``kernel_lut_crossover`` line times both
+   routes on the cubes of ``LUT_SWEEP``.
 4. ``labels``  — ``default_labeler(GaussianFilter(), lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes, then a
    second batch of 1000.  ``qor`` and ``energy`` must be bit-identical to
@@ -57,9 +63,10 @@ Phases, one JSON object per line on standard output:
 Every kernel's launch count is set to 0 just before each of phases 4 to
 6 and read just after; a kernel of the phase's main path
 (``MAIN_PATH``) that the phase did not launch, or did not launch once per
-layer for the serve phases, fails the run.  ``lut_matmul`` is the behavioural
-route of the deployment module, which the labels do not run; its rows in
-phase 3 hold it against its plain version.
+layer for the serve phases, fails the run.  ``lut_matmul`` and
+``lut_matmul_sm90`` are the behavioural route of the deployment module,
+which the labels do not run; their rows in phase 3 hold them against
+their plain version.
 ``--phases`` runs a subset (the first check of a new kernel on the card)
 and then prints no summary and exits 3.
 Then one line ``{"kernels": [...]}`` sums it up, and the last line is
@@ -98,6 +105,11 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # part, a short polynomial of the fraction, an integer add into the
 # exponent bits, about 7 instructions
 EXP2_FP32_INSTRS = 7
+# data-dependent table lookups: a lookup is a load, and an SM's shared
+# memory returns one 128-byte wavefront a clock, at most 32 lookups (one
+# a bank), 132 SMs at 1.98 GHz (the L2, which serves a lookup as a
+# 32-byte sector, is slower still)
+LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
 RANK_RTOL, RANK_ATOL = 1e-5, 0.5     # as the JAX package's kernel tests
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5  # tests/test_kernels.py
@@ -207,13 +219,15 @@ def time_ms(fn, *, repeats: int = 20, warmup: int = 3, runs: int = 3) -> float:
 
 
 def bound_terms(*, nbytes: float, ops: float, exps: float = 0.0,
+                lookups: float = 0.0,
                 ops_per_s: float = CUDA_CORE_OPS_PER_S) -> dict:
     """Least card time in ms of each resource: bytes over the HBM rate;
     operations over the rate of the units that run them (the CUDA cores'
     float32 rate unless the kernel's products run on the tensor cores);
-    the exponentials on the SFUs alone (for the record, not a bound); and
-    the exponentials split between the SFUs and the float32 lanes, which
-    also run the row's CUDA-core operations.  The split's least time is
+    table lookups over the shared-memory lookup rate; the exponentials on
+    the SFUs alone (for the record, not a bound); and the exponentials
+    split between the SFUs and the float32 lanes, which also run the
+    row's CUDA-core operations.  The split's least time is
     max(F / R_f, (F + k E) / (R_f + k R_s)) in float32-lane time F, E
     exponentials, k lane instructions an exp2, lane and SFU rates R_f,
     R_s: the first where the SFUs take every exponential within F."""
@@ -224,16 +238,17 @@ def bound_terms(*, nbytes: float, ops: float, exps: float = 0.0,
                / (1 + k * SFU_EXP_PER_S / FP32_INSTR_PER_S))
     return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "operations": t_ops * 1e3,
+            "lookups": lookups / LOOKUPS_PER_S * 1e3,
             "exps_sfu_only": exps / SFU_EXP_PER_S * 1e3,
             "exps_sfu_and_lanes": max(t_lanes, t_split) * 1e3}
 
 
 def bound(**terms) -> tuple:
-    """(bound_ms, bound_by): the largest of bytes, operations and the
-    exponentials split between the SFUs and the float32 lanes (which
-    count as operations)."""
+    """(bound_ms, bound_by): the largest of bytes, operations, lookups
+    and the exponentials split between the SFUs and the float32 lanes
+    (lookups and exponentials count as operations)."""
     t = bound_terms(**terms)
-    t_ops = max(t["operations"], t["exps_sfu_and_lanes"])
+    t_ops = max(t["operations"], t["lookups"], t["exps_sfu_and_lanes"])
     return ((t["bytes"], "bytes") if t["bytes"] >= t_ops
             else (t_ops, "operations"))
 
@@ -293,7 +308,7 @@ def _max_err(got, want) -> float:
 def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
                 compare, nbytes, ops, repeats=20, library_fn=None,
                 library_compare=None, plain_repeats=None, extra=None,
-                ops_per_s=CUDA_CORE_OPS_PER_S, exps=0.0):
+                ops_per_s=CUDA_CORE_OPS_PER_S, exps=0.0, lookups=0.0):
     import torch
 
     got = kernel_fn()
@@ -316,7 +331,8 @@ def _kernel_row(name, case, route_src, replaces, kernel_fn, plain_fn,
     plain_ms = time_ms(plain_fn, repeats=plain_repeats or repeats)
     library_ms = (time_ms(library_fn, repeats=repeats)
                   if library_fn is not None else None)
-    terms = dict(nbytes=nbytes, ops=ops, exps=exps, ops_per_s=ops_per_s)
+    terms = dict(nbytes=nbytes, ops=ops, exps=exps, lookups=lookups,
+                 ops_per_s=ops_per_s)
     b_ms, b_by = bound(**terms)
     row = {"name": name, "case": case, "route": "cuda", "source": route_src,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
@@ -361,8 +377,7 @@ def phase_kernels(seed: int) -> list:
     from repro_torch.core.acl.library import default_library
     from repro_torch.kernels.approx_matmul import (
         from_circuit, grouped_rank_k_matmul, grouped_rank_k_matmul_kernel,
-        lut_matmul, lut_matmul_kernel, pack_groups, rank_k_matmul,
-        rank_k_matmul_kernel,
+        pack_groups, rank_k_matmul, rank_k_matmul_kernel,
     )
     from repro_torch.kernels.population_lut import (
         population_lut_gather, population_lut_gather_ref,
@@ -425,13 +440,6 @@ def phase_kernels(seed: int) -> list:
     x9 = torch.from_numpy(np.ascontiguousarray(
         _im2col(acc.sample_inputs(1, seed=1)), dtype=np.int32)).to(dev)
     w9 = torch.from_numpy(GAUSS_COEFFS.reshape(9, 1).astype(np.int32)).to(dev)
-    groups = [(x9[:, g:g + 1].contiguous(), w9[g:g + 1].contiguous(), sp)
-              for g, sp in enumerate(specs)]
-    tabs = [torch.from_numpy(sp.table).to(dev) for sp in specs]
-
-    def all_groups(fn):
-        return lambda: torch.stack([fn(i) for i in range(9)])
-
     m9 = x9.shape[0]
     ranks = sum(sp.rank for sp in specs)
     src = "src/repro_torch/csrc/rank_k.cu"
@@ -478,35 +486,210 @@ def phase_kernels(seed: int) -> list:
             ops=2.0 * n ** 3 * (1 + r), repeats=10,
         ))
 
-    src = "src/repro_torch/csrc/lut_matmul.cu"
-    rep = "src/repro/kernels/approx_matmul/kernel.py:132"
-    rows.append(_kernel_row(
-        "lut_matmul", f"9 slot groups ({m9},1)@(1,1) (9 launches)", src, rep,
-        all_groups(lambda i: lut_matmul_kernel(
-            groups[i][0], groups[i][1], tabs[i], signed=False)),
-        all_groups(lambda i: lut_matmul(
-            groups[i][0], groups[i][1], tabs[i], signed=False)),
-        _byte_equal,
-        nbytes=9 * 4.0 * (65536 + 2 * m9 + 1), ops=9.0 * m9,
-    ))
-    for signed, cname in ((False, "mul8u_bam6"), (True, "mul8s_drum4")):
-        n = 512
-        lo, hi = (-128, 128) if signed else (0, 256)
-        x = torch.from_numpy(rng.integers(lo, hi, (n, n)).astype(np.int32)).to(dev)
-        w = torch.from_numpy(rng.integers(lo, hi, (n, n)).astype(np.int32)).to(dev)
-        t = torch.from_numpy(lib[cname].table.astype(np.int32)).to(dev)
-        rows.append(_kernel_row(
-            "lut_matmul", f"({n},{n})@({n},{n}) "
-            + ("signed" if signed else "unsigned") + f" {cname}",
-            src, rep,
-            lambda x=x, w=w, t=t, s=signed: lut_matmul_kernel(x, w, t, signed=s),
-            lambda x=x, w=w, t=t, s=signed: lut_matmul(x, w, t, signed=s),
-            _byte_equal,
-            nbytes=4.0 * (65536 + 3 * n * n), ops=float(n) ** 3, repeats=10,
-        ))
+    rows += _lut_rows(rng, dev, lib, x9, w9, specs)
     rows += _flash_rows(rng, dev)
     rows += _scan_rows(rng, dev)
     return rows
+
+
+# lut_matmul rows past the slot groups: (m, k, n, circuit or "wide",
+# operands, label).  Operands "uniform" are drawn over the 8-bit domain;
+# "extreme" put every term at the table's largest entry in the first half
+# of the rows and columns (the int32 sum at k = 33000 then reaches
+# 33000 * 65025, 0.1% under 2^31); "column" is n = 1, every row against
+# one weight column (lanes of a warp share b, the case the swizzle
+# spreads); "conflict-free" gives all rows one x and each column its own
+# word of the table row, so a warp's lookups take one wavefront (the
+# shared-memory floor, beside the uniform rows' bank conflicts).  The
+# route is the one lut_route picks unless the label names one.
+LUT_CASES = [
+    (512, 512, 512, "mul8u_bam6", "uniform", "unsigned"),
+    (512, 512, 512, "mul8s_drum4", "uniform", "signed"),
+    (512, 512, 512, "mul8u_bam6", "uniform", "unsigned, L2 route"),
+    (512, 512, 512, "mul8s_drum4", "uniform", "signed, L2 route"),
+    (512, 512, 512, "mul8u_bam6", "conflict-free", "unsigned"),
+    (509, 516, 252, "mul8u_drum4", "uniform", "ragged, 16-byte loads"),
+    (509, 515, 251, "mul8s_perf3", "uniform",
+     "ragged, 4-byte loads, k % 4 = 3"),
+    (64, 33000, 64, "mul8u_exact", "extreme", "long k at the int32 edge"),
+    (131072, 64, 1, "mul8u_kulkarni", "column", "n = 1"),
+    (131072, 64, 1, "mul8u_kulkarni", "column", "n = 1, L2 route"),
+    (256, 256, 256, "wide", "uniform", "table wider than 16 bits"),
+]
+# cubes timed on both routes for the crossover (m * n * k), and the k of
+# the shared-memory kernel's (512, k) @ (k, 512) line
+LUT_SWEEP = (32, 48, 64, 80, 96, 112, 128, 160, 192, 256)
+LUT_K_SWEEP = (128, 256, 512, 1024, 2048)
+
+
+def _lut_operands(rng, m, k, n, signed, kind, table):
+    import numpy as np
+
+    lo, hi = (-128, 128) if signed else (0, 256)
+    off = 128 if signed else 0
+    x = rng.integers(lo, hi, (m, k))
+    w = rng.integers(lo, hi, (k, n))
+    if kind == "extreme":
+        a, b = np.unravel_index(int(np.argmax(table)), table.shape)
+        x[: m // 2] = a - off
+        w[:, : n // 2] = b - off
+    elif kind == "column":
+        w = rng.integers(lo, hi, (k, 1))
+    elif kind == "conflict-free":
+        x[:] = rng.integers(lo, hi)
+        w = ((2 * np.arange(n)[None, :] + 64 * (np.arange(k)[:, None] % 4))
+             % 256) - off
+    return (np.ascontiguousarray(x, np.int32),
+            np.ascontiguousarray(w, np.int32))
+
+
+def _lut_rows(rng, dev, lib, x9, w9, specs) -> list:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.approx_matmul import (
+        LUT_SHARED_MIN_WORK, PackedLut, launch_lut, lut_matmul,
+        lut_matmul_kernel, lut_route,
+    )
+
+    rep = "src/repro/kernels/approx_matmul/kernel.py:132"
+    rows = []
+
+    def row(route, case, kernel_fn, plain_fn, m, k, n, repeats=10, calls=1):
+        return _kernel_row(
+            route, case, f"src/repro_torch/csrc/{route}.cu", rep, kernel_fn,
+            plain_fn, _byte_equal,
+            nbytes=calls * 4.0 * (65536 + m * k + k * n + m * n), ops=0.0,
+            lookups=calls * float(m) * n * k, repeats=repeats)
+
+    # the nine gaussian slot groups of a variant, one launch each, each
+    # with its table packed (and uploaded on the first call) beforehand
+    m9 = x9.shape[0]
+    groups = [(x9[:, g:g + 1].contiguous(), w9[g:g + 1].contiguous(),
+               PackedLut(sp.table), torch.from_numpy(sp.table).to(dev))
+              for g, sp in enumerate(specs)]
+    rows.append(row(
+        lut_route(m9, 1, 1, True), f"9 slot groups ({m9},1)@(1,1) (9 launches)",
+        lambda: torch.stack([lut_matmul_kernel(x, w, p)
+                             for x, w, p, _ in groups]),
+        lambda: torch.stack([lut_matmul(x, w, t) for x, w, _, t in groups]),
+        m9, 1, 1, repeats=20, calls=len(groups)))
+
+    s0 = round(LUT_SHARED_MIN_WORK ** (1 / 3))
+    cases = LUT_CASES + [
+        (s, s, s, "mul8u_bam6", "uniform",
+         f"{'under' if s ** 3 < LUT_SHARED_MIN_WORK else 'over'} the "
+         f"crossover m*n*k = {LUT_SHARED_MIN_WORK}")
+        for s in (s0 * 3 // 4, s0 * 5 // 4)]
+    for m, k, n, cname, kind, label in cases:
+        if cname == "wide":
+            table = rng.integers(-40000, 70000, (256, 256)).astype(np.int32)
+            signed = False
+        else:
+            table = lib[cname].table.astype(np.int32)
+            signed = lib[cname].signed
+        x, w = (torch.from_numpy(a).to(dev) for a in _lut_operands(
+            rng, m, k, n, signed, kind, table))
+        packed = PackedLut(table)
+        t_dev = torch.from_numpy(table).to(dev)
+        if "L2 route" in label:
+            route = "lut_matmul"
+            fn = lambda x=x, w=w, p=packed, s=signed: launch_lut(
+                "lut_matmul", x, w, p, signed=s)
+        else:
+            route = lut_route(m, n, k, packed.fits16)
+            fn = lambda x=x, w=w, p=packed, s=signed: lut_matmul_kernel(
+                x, w, p, signed=s)
+        rows.append(row(
+            route, f"({m},{k})@({k},{n}) {cname} {kind} ({label})", fn,
+            lambda x=x, w=w, t=t_dev, s=signed: lut_matmul(x, w, t, signed=s),
+            m, k, n, repeats=5 if k > 4096 else 10))
+    return rows
+
+
+def device_ms(fn, *, calls: int = 20) -> float:
+    """Card time of one ``fn()`` without the host's launch rate: the
+    device time of every kernel and memset in a ``torch.profiler`` window
+    of ``calls`` back-to-back calls, over the count (after a warm-up
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_s, _ = _device_time(prof)
+    check(dev_s is not None, "profiler window holds no device time")
+    return dev_s * 1e3 / calls
+
+
+def phase_lut_crossover(seed: int) -> dict:
+    """Both lut_matmul kernels at the cubes of ``LUT_SWEEP``, each against
+    its plain version first, timed as the kernel rows are (``ms``, which
+    a call shorter than the host's launch interval does not resolve) and
+    on the card alone (``device_ms``): where the shared-memory route
+    overtakes the L2 one, against ``LUT_SHARED_MIN_WORK``.  Then the
+    shared-memory kernel at (512, k) @ (k, 512) for the k of
+    ``LUT_K_SWEEP`` on uniform and on conflict-free operands, with the
+    least-squares line of its device time in k: the intercept is what a
+    call costs besides its lookups."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.kernels.approx_matmul import (
+        LUT_SHARED_MIN_WORK, PackedLut, launch_lut, lut_matmul,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    table = default_library()["mul8u_bam6"].table.astype(np.int32)
+    packed = PackedLut(table)
+    t_dev = torch.from_numpy(table).to(dev)
+    routes = ("lut_matmul", "lut_matmul_sm90")
+    sweep = []
+    for s in LUT_SWEEP:
+        x, w = (torch.from_numpy(a).to(dev) for a in _lut_operands(
+            rng, s, s, s, False, "uniform", table))
+        want = lut_matmul(x, w, t_dev)
+        point = {"m": s, "n": s, "k": s, "work": s ** 3}
+        for route in routes:
+            fn = lambda x=x, w=w, r=route: launch_lut(r, x, w, packed)
+            _byte_equal(fn(), want, f"crossover {route} at {s}^3")
+            point[route + "_ms"] = time_ms(fn)
+            point[route + "_device_ms"] = device_ms(fn)
+        sweep.append(point)
+    # the least work from which the shared route's card time wins at
+    # every larger cube
+    first = None
+    for p in reversed(sweep):
+        if p["lut_matmul_sm90_device_ms"] >= p["lut_matmul_device_ms"]:
+            break
+        first = p["work"]
+    k_sweep = {}
+    for kind in ("uniform", "conflict-free"):
+        pts = []
+        for k in LUT_K_SWEEP:
+            x, w = (torch.from_numpy(a).to(dev) for a in _lut_operands(
+                rng, 512, k, 512, False, kind, table))
+            fn = lambda x=x, w=w: launch_lut("lut_matmul_sm90", x, w, packed)
+            _byte_equal(fn(), lut_matmul(x, w, t_dev),
+                        f"k sweep {kind} at k={k}")
+            pts.append({"k": k, "device_ms": device_ms(fn)})
+        slope, icept = np.polyfit([p["k"] for p in pts],
+                                  [p["device_ms"] for p in pts], 1)
+        k_sweep[kind] = {"points": pts, "ms_per_k": float(slope),
+                         "intercept_ms": float(icept)}
+    out = {"phase": "kernel_lut_crossover", "sweep": sweep,
+           "shared_route_faster_from": first,
+           "LUT_SHARED_MIN_WORK": LUT_SHARED_MIN_WORK,
+           "k_sweep_512x512": k_sweep}
+    emit(out)
+    return out
 
 
 def _causal_pairs(sq: int, sk: int, q_offset: int, causal: bool) -> int:
@@ -1074,6 +1257,8 @@ def main(argv=None) -> int:
         info = phase_device()
         phase_build()
         rows = phase_kernels(args.seed) if "kernel" in phases else []
+        if "kernel" in phases:
+            phase_lut_crossover(args.seed)
         runs = []
         if "labels" in phases:
             runs.append(phase_labels(args.seed))

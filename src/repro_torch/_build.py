@@ -53,6 +53,9 @@ KERNELS: Dict[str, tuple] = {
     "rank_k": ("rank_k_grouped", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (x, w, table, out, m, n, k, offset, stream)
     "lut_matmul": ("lut_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (x, w, narrowed table, out, m, n, k, offset, table minimum, stream)
+    "lut_matmul_sm90": ("lut_matmul_sm90",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale,
     #  dtype, stream)
     "flash_attention": ("flash_attention_fwd",

@@ -10,8 +10,11 @@ circuit.
 The kernel wrappers dispatch on the tensor's device: on a CUDA tensor
 ``grouped_rank_k_matmul_kernel`` (every slot group of a variant, packed
 by ``pack_groups``) and ``rank_k_matmul_kernel`` (one group) launch
-``csrc/rank_k.cu`` once, and ``lut_matmul_kernel`` launches
-``csrc/lut_matmul.cu`` (or raise); on a CPU tensor they run the plain
+``csrc/rank_k.cu`` once, and ``lut_matmul_kernel`` launches the kernel
+that ``LUT_ROUTES`` picks from the shape and the table (or raise): the
+16-bit table resident in shared memory (``csrc/lut_matmul_sm90.cu``,
+table narrowed on the host by ``pack_lut``) or the int32 table read
+from L2 (``csrc/lut_matmul.cu``).  On a CPU tensor they run the plain
 versions in ``ref``.
 
 Also provides the symmetric int8 quantization helpers that put float
@@ -21,7 +24,7 @@ tensors into the 8-bit circuit domain.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +41,13 @@ __all__ = [
     "grouped_rank_k_matmul_kernel",
     "rank_k_matmul_kernel",
     "lut_matmul_kernel",
+    "launch_lut",
+    "PackedLut",
+    "pack_lut",
+    "lut_swizzle",
+    "lut_route",
+    "LUT_ROUTES",
+    "LUT_SHARED_MIN_WORK",
     "quantize_sym",
     "dequantize",
 ]
@@ -107,17 +117,14 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"x on {x.device}, w on {w.device}")
 
 
-def _check_cuda(x, w, signed: bool, *tables) -> int:
-    """Device-side preconditions of the two matmul kernels; returns the
-    table index offset."""
+def _check_cuda(x, w, signed: bool) -> int:
+    """Device-side preconditions of the matmul kernels; returns the table
+    index offset."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     for t, nm in ((x, "x"), (w, "w")):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{nm} must be contiguous int32, got {t.dtype}")
-    for t in tables:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("tables must be contiguous and on x's device")
     m, k = x.shape
     n = w.shape[1]
     if max(m, n, k) >= 2 ** 31 or (m + 15) // 16 > 65535:
@@ -228,29 +235,162 @@ def rank_k_matmul_kernel(
         x, w, _pack([(0, x.shape[1], u, v, signed, 0)]))
 
 
-def lut_matmul_kernel(
-    x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
-    *, signed: bool = False,
-) -> torch.Tensor:
-    """(m, n) int32 ``out[i, j] = sum_k T[x[i,k], w[k,j]]``, exact."""
+# --- the table matmul's two routes -------------------------------------------
+
+# Swizzled byte offset of entry (a, b) of the narrowed table, as
+# csrc/lut_matmul_sm90.cu reads it:
+#   (a << 9) | ((b << 1) ^ ((a & 31) << 2))
+LUT_ROW_SHIFT, LUT_COL_SHIFT = 9, 1
+LUT_SWIZZLE_MASK, LUT_SWIZZLE_SHIFT = 31, 2
+
+# m * n * k from which the shared-memory route takes less card time than
+# the L2 one.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py,
+# kernel_lut_crossover, device time a call on uniform cubes): both about
+# 7 us at 64^3; above it the shared route stays near 7 us to 192^3 (its
+# blocks stage the 128 KB table once each) while the L2 route grows with
+# the work (9 us at 80^3, 14 at 128^3, 43 at 256^3); below it the L2
+# route is faster (4 against 5 us at 32^3).
+LUT_SHARED_MIN_WORK = 1 << 18
+# (table range fits 16 bits, m * n * k >= LUT_SHARED_MIN_WORK) -> kernel
+LUT_ROUTES = {
+    (True, True): "lut_matmul_sm90",
+    (True, False): "lut_matmul",
+    (False, True): "lut_matmul",
+    (False, False): "lut_matmul",
+}
+
+
+def lut_swizzle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Byte offset of entry (a, b) in the narrowed table's layout."""
+    a = np.asarray(a, np.int64)
+    b = np.asarray(b, np.int64)
+    return (a << LUT_ROW_SHIFT) | ((b << LUT_COL_SHIFT) ^ (
+        (a & LUT_SWIZZLE_MASK) << LUT_SWIZZLE_SHIFT))
+
+
+def _check_table(table: np.ndarray) -> np.ndarray:
+    table = np.ascontiguousarray(table)
+    if table.shape != (256, 256):
+        raise ValueError(f"table must be (256, 256), got {table.shape}")
+    if not np.issubdtype(table.dtype, np.integer):
+        raise ValueError(f"table must be integer, got {table.dtype}")
+    return table.astype(np.int32, copy=False)
+
+
+def pack_lut(table: np.ndarray) -> Tuple[np.ndarray, int]:
+    """A (256, 256) int32 product table narrowed for the shared-memory
+    route: ``(T - tmin)`` as uint16 in the swizzled layout (``lut_swizzle``,
+    65536 entries, 128 KB), and ``tmin = min(T)``.  Raises if
+    ``max(T) - min(T)`` exceeds 65535."""
+    t = _check_table(table).astype(np.int64)
+    tmin = int(t.min())
+    if int(t.max()) - tmin > 65535:
+        raise ValueError(f"table range {int(t.max()) - tmin} exceeds 16 bits")
+    a, b = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    narrow = np.empty(65536, np.uint16)
+    narrow[lut_swizzle(a, b).reshape(-1) >> 1] = (t - tmin).reshape(-1)
+    return narrow, tmin
+
+
+def lut_route(m: int, n: int, k: int, fits16: bool) -> str:
+    """The kernel (a ``_build.KERNELS`` name) that takes an (m, k) @ (k, n)
+    table matmul whose table range does (``fits16``) or does not fit 16
+    bits."""
+    return LUT_ROUTES[(bool(fits16), m * n * k >= LUT_SHARED_MIN_WORK)]
+
+
+class PackedLut:
+    """A product table ready for both routes: the int32 table on the host
+    and, on first use per route and device, its device copy (the
+    narrowed 128 KB ``pack_lut`` layout for the shared-memory route, the
+    int32 table for the L2 one), kept for later calls so that a call
+    after the first moves no table."""
+
+    def __init__(self, table: np.ndarray):
+        self.table = _check_table(table)
+        self.fits16 = (int(self.table.max()) - int(self.table.min())
+                       <= 65535)
+        self.tmin = int(self.table.min())
+        self._dev: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    def device_table(self, route: str, device: torch.device) -> torch.Tensor:
+        key = (route, torch.device(device))
+        dev = self._dev.get(key)
+        if dev is None:
+            if route == "lut_matmul_sm90":
+                narrow, _ = pack_lut(self.table)
+                host = torch.from_numpy(narrow.view(np.int16))
+            elif route == "lut_matmul":
+                host = torch.from_numpy(self.table)
+            else:
+                raise ValueError(f"unknown lut route {route!r}")
+            dev = self._dev[key] = host.to(device).contiguous()
+        return dev
+
+
+def _packed(table) -> PackedLut:
+    if isinstance(table, PackedLut):
+        return table
+    if isinstance(table, torch.Tensor):
+        if table.dtype != torch.int32:
+            raise ValueError("table must be int32")
+        table = table.detach().cpu().numpy()
+    return PackedLut(table)
+
+
+def launch_lut(route: str, x: torch.Tensor, w: torch.Tensor,
+               table: PackedLut, *, signed: bool = False) -> torch.Tensor:
+    """Launch the lut kernel ``route`` (one of ``LUT_ROUTES``'s) on CUDA
+    tensors: ``lut_matmul_kernel`` with the route named rather than
+    chosen, so that a measurement can time both kernels at one shape."""
     _check_operands(x, w)
-    if tuple(table.shape) != (256, 256):
-        raise ValueError(f"table must be (256, 256), got {tuple(table.shape)}")
-    if x.device.type == "cpu":
-        return ref.lut_matmul(x, w, table, signed=signed)
-    if table.dtype != torch.int32:
-        raise ValueError("table must be int32")
+    if route not in set(LUT_ROUTES.values()):
+        raise ValueError(f"unknown lut route {route!r}")
+    if route == "lut_matmul_sm90" and not table.fits16:
+        raise ValueError("table range exceeds 16 bits: only the L2 route "
+                         "takes it")
     if x.shape[1] > 33000:
         raise ValueError("k too large for an exact int32 sum")
-    off = _check_cuda(x, w, signed, table)
+    off = _check_cuda(x, w, signed)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    _build.call("lut_matmul", x.device, x.data_ptr(), w.data_ptr(),
-                table.data_ptr(), out.data_ptr(), m, n, k, off)
+    args = [x.data_ptr(), w.data_ptr(),
+            table.device_table(route, x.device).data_ptr(), out.data_ptr(),
+            m, n, k, off]
+    if route == "lut_matmul_sm90":
+        args.append(table.tmin)
+    _build.call(route, x.device, *args)
     return out
+
+
+def lut_matmul_kernel(
+    x: torch.Tensor, w: torch.Tensor,
+    table: Union[torch.Tensor, np.ndarray, PackedLut],
+    *, signed: bool = False,
+) -> torch.Tensor:
+    """(m, n) int32 ``out[i, j] = sum_k T[x[i,k], w[k,j]]``, exact.
+
+    ``table`` is a (256, 256) int32 table (a tensor or a numpy array) or
+    a ``PackedLut``.  On a CUDA tensor it launches the kernel that
+    ``lut_route`` picks for the shape and the table.  A table given as a
+    device tensor is read back to the host once, to pack it: hand a host
+    table or a ``PackedLut`` where the call is timed."""
+    _check_operands(x, w)
+    if x.device.type == "cpu":
+        if isinstance(table, torch.Tensor):
+            if tuple(table.shape) != (256, 256):
+                raise ValueError(
+                    f"table must be (256, 256), got {tuple(table.shape)}")
+            return ref.lut_matmul(x, w, table, signed=signed)
+        table = torch.from_numpy(_packed(table).table)
+        return ref.lut_matmul(x, w, table, signed=signed)
+    table = _packed(table)
+    m, k = x.shape
+    return launch_lut(lut_route(m, w.shape[1], k, table.fits16), x, w,
+                      table, signed=signed)
 
 
 # --- the two routes -----------------------------------------------------------
@@ -277,9 +417,8 @@ def approx_matmul(
         raise ValueError(f"spec {spec.name} carries no product table")
     x = x.to(torch.int32).contiguous()
     w = w.to(torch.int32).contiguous()
-    table = torch.as_tensor(spec.table, dtype=torch.int32, device=x.device)
-    return lut_matmul_kernel(
-        x, w, table.contiguous(), signed=spec.signed).float()
+    return lut_matmul_kernel(x, w, PackedLut(spec.table),
+                             signed=spec.signed).float()
 
 
 def grouped_matmul(
