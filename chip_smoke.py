@@ -22,7 +22,10 @@ Phases, one JSON object per line on standard output:
    ragged edges of both kernels' tiling included), both timed with CUDA
    events, and where one PyTorch call computes the same function (the
    population gather's indexing, ``scaled_dot_product_attention``) that
-   call too.  Each row's bound is the largest of bytes over the HBM rate,
+   call too.  population_lut and rank_k also run at the shapes the
+   DCT's labels give them (the signed mul8s gather at 1024 and 784 rows,
+   shared and per-genome cols; one (256,4)@(4,1) per-column deploy
+   product of 4 signed groups).  Each row's bound is the largest of bytes over the HBM rate,
    operations over the rate of the units that run them, the LUT
    matmul's table lookups over the shared-memory lookup rate and, for
    the scan's and the softmax's exponentials, their least time split
@@ -33,16 +36,21 @@ Phases, one JSON object per line on standard output:
    table wider than 16 bits, conflict-free operands, both sides of the
    route crossover), and a ``kernel_lut_crossover`` line times both
    routes on the cubes of ``LUT_SWEEP``.
-4. ``labels``  — ``default_labeler(GaussianFilter(), lib,
-   n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes, then a
-   second batch of 1000.  ``qor`` and ``energy`` must be bit-identical to
-   ``device="cpu"`` on a 64-genome subset and to the per-genome numpy
-   ``Accelerator.qor`` on 8 genomes; rank_k must launch exactly once per
-   unique variant synthesized.
-5. ``dse``     — ``run_dse`` on ``GaussianFilter`` at the paper's widths
-   (n_train=1000, pop_size=1000, n_parents=200, 4 QoR images), with
-   ``n_generations`` cut as the ``reduced`` field says; the front's labels
-   are checked against ``device="cpu"``.
+4. ``labels``  — one line per accelerator: ``default_labeler(acc, lib,
+   n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes of
+   ``gaussian3x3`` (then a second batch of 1000), ``mcm1``…``mcm4``,
+   ``hevc_dct4x4`` (and a second batch), ``smoothed_dct`` (and a second
+   batch), ``smoothed_dct/stage0`` and ``/stage1``.  ``qor`` and
+   ``energy`` must be bit-identical to ``device="cpu"`` on a 64-genome
+   subset, ``qor`` to the per-genome numpy ``Accelerator.qor`` on 8
+   genomes; rank_k must launch exactly its deployment's launches
+   (``DEPLOY_LAUNCHES``: 1, 8 for the DCT's two passes, 9 for the chain)
+   once per unique variant synthesized.
+5. ``dse``     — ``run_dse`` on ``GaussianFilter``, then on ``HEVCDct``, at
+   the paper's widths (n_train=1000, pop_size=1000, n_parents=200, 4 QoR
+   images), with ``n_generations`` cut as the ``reduced`` field says; the
+   front must hold designs below its best QoR (approximate ones), and
+   its labels are checked against ``device="cpu"``.
 6. ``serve_granite-8b``, ``serve_granite-8b_approx``,
    ``serve_falcon-mamba-7b`` — the LM serving path at full width and
    depth, one model at a time (freed before the next): weights drawn from
@@ -60,8 +68,9 @@ Phases, one JSON object per line on standard output:
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
    at rank 3.
 
-Every kernel's launch count is set to 0 just before each of phases 4 to
-6 and read just after; a kernel of the phase's main path
+Every kernel's launch count is set to 0 just before each run of phases 4
+to 6 (each accelerator's labels, each dse, each serve) and read just
+after; a kernel of the phase's main path
 (``MAIN_PATH``) that the phase did not launch, or did not launch once per
 layer for the serve phases, fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
@@ -177,6 +186,15 @@ MAIN_PATH = {
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
+}
+# rank_k launches of one variant's deployment graph (``build_deploy``):
+# one grouped product for gaussian3x3 and an MCM row, four products (one
+# per output column) in each of the DCT's two passes, the chain's sum
+# for the pipeline, a stage view's own stage's
+DEPLOY_LAUNCHES = {
+    "gaussian3x3": 1, "mcm1": 1, "mcm2": 1, "mcm3": 1, "mcm4": 1,
+    "hevc_dct4x4": 8, "smoothed_dct": 9,
+    "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "serve")
 
@@ -486,9 +504,94 @@ def phase_kernels(seed: int) -> list:
             ops=2.0 * n ** 3 * (1 + r), repeats=10,
         ))
 
+    rows += _hevc_rows(rng, dev, lib)
     rows += _lut_rows(rng, dev, lib, x9, w9, specs)
     rows += _flash_rows(rng, dev)
     rows += _scan_rows(rng, dev)
+    return rows
+
+
+def _hevc_rows(rng, dev, lib) -> list:
+    """population_lut and rank_k at the shapes the DCT's labels give them:
+    the signed mul8s gather (index x + 128) of stage 1 (shared cols) and
+    stage 2 (per-genome cols) at the 4 QoR images' 1024 residual rows,
+    the smoothed-DCT chain's stage 2 at 784 rows, and one per-column
+    deploy product (256, 4) @ (4, 1) of 4 signed width-1 groups."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import HEVCDct, fused
+    from repro_torch.accel.hevc_dct import HEVC_C, _blocks
+    from repro_torch.kernels.approx_matmul import (
+        from_circuit, grouped_rank_k_matmul, grouped_rank_k_matmul_kernel,
+        pack_groups,
+    )
+    from repro_torch.kernels.population_lut import (
+        population_lut_gather, population_lut_gather_ref,
+    )
+
+    rows = []
+    acc = HEVCDct()
+    lut = fused.build_engine(lib, dev).lut("mul8s", HEVC_C[1], tag="mcm1")
+    C, S, _ = lut.shape
+    G = 1000
+    s_l = torch.arange(S, device=dev)
+    # stage 1's columns: the transposed blocks of the 4 QoR images + 128
+    blocks = _blocks(acc.sample_inputs(4, seed=1234))
+    shared = torch.from_numpy(np.ascontiguousarray(
+        np.swapaxes(blocks, -1, -2).reshape(-1, 4) + 128,
+        dtype=np.int32)).to(dev)
+    src = "src/repro_torch/csrc/population_lut.cu"
+    rep = "src/repro/kernels/population_lut/kernel.py:43"
+    for M, per_genome, what in (
+            (shared.shape[0], False, "hevc_dct4x4 stage 1, shared cols"),
+            (shared.shape[0], True, "hevc_dct4x4 stage 2, per-genome cols"),
+            (4 * 49 * 4, True, "smoothed_dct stage 2, per-genome cols")):
+        genes = torch.from_numpy(
+            rng.integers(0, C, size=(G, S)).astype(np.int32)).to(dev)
+        c = shared if not per_genome else torch.from_numpy(
+            rng.integers(0, 256, size=(G, M, S)).astype(np.int32)).to(dev)
+        g_l = genes.long()[:, None, :]
+        c_l = c.long() if per_genome else c.long()[None]
+        rows.append(_kernel_row(
+            "population_lut", f"G={G} M={M} S={S} C={C} signed ({what})",
+            src, rep,
+            lambda g=genes, c=c, p=per_genome: population_lut_gather(
+                lut, g, c, per_genome=p),
+            lambda g=genes, c=c, p=per_genome: population_lut_gather_ref(
+                lut, g, c, per_genome=p),
+            _byte_equal,
+            nbytes=4.0 * (lut.numel() + genes.numel() + c.numel()
+                          + G * M * S),
+            ops=0.0,
+            library_fn=lambda g_l=g_l, c_l=c_l: lut[g_l, s_l, c_l],
+        ))
+
+    # one output column of a DCT pass: the residual rows of the deploy
+    # image against C^T[:, r], one signed circuit a contraction column
+    names = ["mul8s_exact", "mul8s_trunc3", "mul8s_mitchell", "mul8s_drum4"]
+    specs = [from_circuit(lib[n]) for n in names]
+    x = torch.from_numpy(np.ascontiguousarray(
+        _blocks(acc.sample_inputs(1, seed=1)).reshape(-1, 4),
+        dtype=np.int32)).to(dev)
+    w = torch.from_numpy(np.ascontiguousarray(
+        HEVC_C.T[:, 1:2], dtype=np.int32)).to(dev)
+    m = x.shape[0]
+    packed = pack_groups(specs, [(j, j + 1) for j in range(4)])
+    packed_dev = torch.from_numpy(packed).to(dev)
+    rows.append(_kernel_row(
+        "rank_k", f"4 signed slot groups ({m},4)@(4,1), "
+        + ", ".join(f"{n} r={sp.rank} trunc={sp.trunc_bits}"
+                    for n, sp in zip(names, specs))
+        + " (hevc_dct4x4 per-column deploy product, 1 launch)",
+        "src/repro_torch/csrc/rank_k.cu",
+        "src/repro/kernels/approx_matmul/kernel.py:72",
+        lambda: grouped_rank_k_matmul_kernel(x, w, packed),
+        lambda: grouped_rank_k_matmul(x, w, packed_dev),
+        _rank_close,
+        nbytes=4.0 * (x.numel() + w.numel() + m + packed.size),
+        ops=2.0 * m * (4 + sum(sp.rank for sp in specs)),
+    ))
     return rows
 
 
@@ -819,83 +922,103 @@ def _check_labels(labels: dict, n: int, what: str) -> None:
               f"{what}: label {k} not finite of shape ({n},)")
 
 
-def phase_labels(seed: int) -> dict:
+def _label_accels():
+    """(accelerator, label batches of 1000) of the labels phase, in the
+    order the main path takes them: gaussian3x3, the MCM rows, the 2-D
+    DCT, the smoothed-DCT pipeline and its two stage views."""
+    from repro_torch.accel import (
+        GaussianFilter, HEVCDct, MCMAccelerator, SmoothedDct,
+    )
+
+    smoothed = SmoothedDct()
+    return ([(GaussianFilter(), 2)]
+            + [(MCMAccelerator(r), 1) for r in range(4)]
+            + [(HEVCDct(), 2), (smoothed, 2)]
+            + [(view, 1) for view in smoothed.stage_views()])
+
+
+def phase_labels(acc, batches: int, seed: int) -> dict:
+    """``default_labeler(acc, lib, n_qor_samples=4, device="cuda")`` on
+    ``batches`` batches of 1000 numpy-seeded genomes (the second warm).
+    ``qor`` and ``energy`` must be bit-identical to ``device="cpu"`` on a
+    64-genome subset, ``qor`` to the per-genome numpy ``Accelerator.qor``
+    on 8 genomes; rank_k must launch exactly its deployment's launches
+    (``DEPLOY_LAUNCHES``) once per unique variant synthesized."""
     import numpy as np
     import torch
 
     from repro_torch import _build
-    from repro_torch.accel import GaussianFilter
     from repro_torch.core.acl.library import default_library
     from repro_torch.core.dse import default_labeler
 
     lib = default_library()
-    acc = GaussianFilter()
     rng = np.random.default_rng(seed)
-    g1 = _random_genomes(acc, lib, 1000, rng)
-    g2 = _random_genomes(acc, lib, 1000, rng)
+    gs = [_random_genomes(acc, lib, 1000, rng) for _ in range(batches)]
 
     _build.reset_launches()
     synth_cache: dict = {}   # one entry per unique variant synthesized
     labeler = default_labeler(acc, lib, n_qor_samples=4, cache=synth_cache,
                               device="cuda")
-    t0 = time.perf_counter()
-    lab1 = labeler(g1)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    lab2 = labeler(g2)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    labs, walls = [], []
+    for g in gs:
+        t0 = time.perf_counter()
+        labs.append(labeler(g))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     launches = dict(_build.LAUNCHES)
 
-    _check_labels(lab1, len(g1), "labels batch 1")
-    _check_labels(lab2, len(g2), "labels batch 2")
-    check(lab1["qor"][0] == 100.0, "exact genome's QoR is not 100.0")
+    what = f"labels {acc.name}"
+    for i, (g, lab) in enumerate(zip(gs, labs)):
+        _check_labels(lab, len(g), f"{what} batch {i + 1}")
+    check(labs[0]["qor"][0] == 100.0, f"{what}: exact genome's QoR is not "
+                                      "100.0")
     for k in MAIN_PATH["labels"]:
-        check(launches[k] > 0, f"labels phase launched no {k} kernel")
-    check(launches["rank_k"] == len(synth_cache),
-          f"labels phase launched rank_k {launches['rank_k']} times for "
-          f"{len(synth_cache)} unique variants synthesized")
+        check(launches[k] > 0, f"{what}: launched no {k} kernel")
+    per_variant = DEPLOY_LAUNCHES[acc.name]
+    check(launches["rank_k"] == per_variant * len(synth_cache),
+          f"{what}: launched rank_k {launches['rank_k']} times for "
+          f"{len(synth_cache)} unique variants synthesized, "
+          f"{per_variant} launches each")
     sub = 64
-    cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(g1[:sub])
+    cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(gs[0][:sub])
     for k in ("qor", "energy"):
-        check(np.array_equal(cpu[k], lab1[k][:sub]),
-              f"cuda {k} differs from cpu on the {sub}-genome subset")
+        check(np.array_equal(cpu[k], labs[0][k][:sub]),
+              f"{what}: cuda {k} differs from cpu on the {sub}-genome subset")
     inputs = acc.sample_inputs(4, seed=1234)
     for t in range(8):
-        circuits, _ = acc.decode(g1[t], lib)
-        check(acc.qor(circuits, inputs) == lab1["qor"][t],
-              f"cuda qor of genome {t} differs from the per-genome numpy qor")
+        circuits, _ = acc.decode(gs[0][t], lib)
+        check(acc.qor(circuits, inputs) == labs[0]["qor"][t],
+              f"{what}: cuda qor of genome {t} differs from the per-genome "
+              "numpy qor")
     out = {
-        "phase": "labels", "genomes": [len(g1), len(g2)],
-        "first_s": t1 - t0, "second_s": t2 - t1,
-        "first_labels_per_s": len(g1) / (t1 - t0),
-        "second_labels_per_s": len(g2) / (t2 - t1),
-        "sim_s": [float(lab1["sim_time"].sum()), float(lab2["sim_time"].sum())],
-        "synth_s": [float(lab1["synth_time"].sum()),
-                    float(lab2["synth_time"].sum())],
+        "phase": "labels", "accel": acc.name,
+        "genomes": [len(g) for g in gs],
+        "batch_s": walls,
+        "labels_per_s": [len(g) / w for g, w in zip(gs, walls)],
+        "sim_s": [float(lab["sim_time"].sum()) for lab in labs],
+        "synth_s": [float(lab["synth_time"].sum()) for lab in labs],
         "cpu_subset_bit_identical": {"genomes": sub, "keys": ["qor", "energy"]},
         "unique_variants_synthesized": len(synth_cache),
+        "rank_k_launches_per_variant": per_variant,
         "launches": launches,
     }
     emit(out)
     return out
 
 
-def phase_dse(generations: int) -> dict:
+def phase_dse(acc, generations: int) -> dict:
     import numpy as np
     import torch
 
     from repro_torch import _build
-    from repro_torch.accel import GaussianFilter
     from repro_torch.core.acl.library import default_library
     from repro_torch.core.dse import DSEConfig, default_labeler, run_dse
     from repro_torch.core.nsga2 import NSGA2Config
 
     lib = default_library()
-    acc = GaussianFilter()
     # the JAX package's default power surrogate (bayesian_ridge) hits a
-    # singular system on 1000 labels of this accelerator: its energy is
-    # an exact linear function of the features.  Ridge regularizes.
+    # singular system on 1000 labels of gaussian3x3: its energy is an
+    # exact linear function of the features.  Ridge regularizes.
     cfg = DSEConfig(
         n_train=1000, n_qor_samples=4, hw_model="ridge",
         nsga=NSGA2Config(pop_size=1000, n_parents=200,
@@ -909,15 +1032,21 @@ def phase_dse(generations: int) -> dict:
     launches = dict(_build.LAUNCHES)
 
     for k in MAIN_PATH["dse"]:
-        check(launches[k] > 0, f"dse phase launched no {k} kernel")
+        check(launches[k] > 0, f"dse {acc.name}: launched no {k} kernel")
     front_g = res.front_genomes
     front_o = res.front_objectives
     check(len(front_g) > 0 and np.all(np.isfinite(front_o)),
-          "dse front empty or not finite")
+          f"dse {acc.name}: front empty or not finite")
+    # the search must trade QoR for energy: designs below the front's best
+    # QoR (the exact design's) are what the cpu re-label then checks
+    front_qor = -front_o[:, 0]
+    n_approx = int(np.sum(front_qor < front_qor.max()))
+    check(n_approx > 0,
+          f"dse {acc.name}: the front holds no approximate design")
     cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(front_g)
     check(np.array_equal(-cpu["qor"], front_o[:, 0])
           and np.array_equal(cpu["energy"], front_o[:, 1]),
-          "dse front objectives differ from a cpu re-label")
+          f"dse {acc.name}: front objectives differ from a cpu re-label")
     out = {
         "phase": "dse", "accel": acc.name, "wall_s": wall,
         "n_train": cfg.n_train, "pop_size": cfg.nsga.pop_size,
@@ -927,6 +1056,7 @@ def phase_dse(generations: int) -> dict:
                     "hw_model": {"repo_default": "bayesian_ridge",
                                  "run": "ridge"}},
         "front_size": int(len(front_g)),
+        "front_approximate": n_approx,
         "front_qor_range": [float(-front_o[:, 0].max()),
                             float(-front_o[:, 0].min())],
         "val_pcc": res.val_pcc, "timings_s": res.timings,
@@ -1261,9 +1391,13 @@ def main(argv=None) -> int:
             phase_lut_crossover(args.seed)
         runs = []
         if "labels" in phases:
-            runs.append(phase_labels(args.seed))
+            runs += [phase_labels(acc, batches, args.seed)
+                     for acc, batches in _label_accels()]
         if "dse" in phases:
-            runs.append(phase_dse(args.generations))
+            from repro_torch.accel import GaussianFilter, HEVCDct
+
+            runs.append(phase_dse(GaussianFilter(), args.generations))
+            runs.append(phase_dse(HEVCDct(), args.generations))
         if "serve" in phases:
             runs.append(phase_serve("granite-8b", args.seed))
             runs.append(phase_serve("granite-8b", args.seed, approx=True))

@@ -119,10 +119,16 @@ class Accelerator:
         peak: float | None = None,
         device=None,
     ) -> np.ndarray:
-        """Per-genome QoR vector.  The exact reference is computed ONCE
-        for the whole population; the population's outputs and their
+        """Per-genome QoR vector; the exact reference is computed ONCE
+        for the whole population.  Where the accelerator's plan has an
+        integer exact reference, the population's outputs and their
         integer SSE stay on ``device`` (default ``"cuda"``) and only the
-        (G,) SSE vector comes back for the float64 PSNR finish."""
+        (G,) SSE vector comes back for the float64 PSNR finish.
+        Otherwise the host takes ``psnr_batch`` of ``simulate_batch``
+        (which runs on ``device``) against ``exact_output``: the split of
+        an accelerator whose output is finished on the host in float64.
+        An accelerator with no plan and no ``simulate_batch`` of its own
+        raises."""
         from . import fused
 
         return fused.qor_batch(

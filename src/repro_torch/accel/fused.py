@@ -25,7 +25,15 @@ Bit-exactness rules, in the order they are enforced:
 PyTorch runs eagerly, so the engine has no compile cache, no population
 bucketing and no fallback: on a CUDA device it launches its kernels or
 raises.  Plans are registered per accelerator class with
-``register_fused``.
+``register_fused``; a ``StagedPipeline`` runs its whole chain on the
+device through ``staged_plan`` when every stage has a plan and every
+coupling a torch twin (``register_coupling``), and raises otherwise.
+
+A plan whose device output is not the final output (the 2-D DCT returns
+integer coefficients; its float64 inverse transform stays on the host,
+where float64 contraction order, and so the bits, is the numpy path's)
+has no integer QoR reference: ``qor_batch`` then finishes PSNR on the
+host from the plan's ``simulate_batch`` output, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,8 +50,8 @@ from ..core.acl.library import Library, library_fingerprint
 from ..device import resolve_device
 
 __all__ = [
-    "FusedPlan", "register_fused", "simulate_batch", "qor_batch",
-    "build_engine",
+    "FusedPlan", "register_fused", "register_coupling", "staged_plan",
+    "simulate_batch", "qor_batch", "build_engine",
 ]
 
 _M16 = (1 << 16) - 1
@@ -262,19 +270,32 @@ class FusedPlan:
     """One accelerator's population pipeline.
 
     ``stage_fn(genes, x, per_genome)`` is the device core: (G, n_genes)
-    int32 genes and the ``prep``-ed inputs in, natural-layout
-    (numpy-``simulate``-shaped) integer outputs out.  ``prep(inputs,
-    device)``/``post(raw)`` are the host-side dtype shims; ``qor_ref``
-    (when set) provides the integer exact reference that lets the QoR
-    reduce on the device."""
+    int32 genes and the ``prep``-ed inputs in, integer outputs out.
+    ``prep(inputs, device)`` and ``post(raw, inputs, per_genome)`` are the
+    host-side shims (``post`` turns the device output into the numpy
+    ``simulate_batch`` output); ``qor_ref`` (when set) provides the
+    integer exact reference that lets the QoR reduce on the device.
+    ``device_natural`` is True iff ``stage_fn``'s output IS the
+    ``simulate_batch`` output (modulo dtype): a plan with a host-side
+    tail sets False and can only end a staged chain, not feed a later
+    stage."""
 
     stage_fn: Callable
     prep: Callable
     post: Callable
     qor_ref: Optional[Callable] = None
+    device_natural: bool = True
+
+
+def host_int64(raw: torch.Tensor, inputs, per_genome: bool) -> np.ndarray:
+    """The ``post`` of a plan whose device output is the final output:
+    an int64 host copy."""
+    return raw.cpu().numpy().astype(np.int64)
 
 
 _PLANS: Dict[type, Callable] = {}
+# coupling name -> torch twin of its ``sim`` map (None: the identity)
+_COUPLINGS: Dict[str, Optional[Callable]] = {"identity": None}
 
 
 def register_fused(cls):
@@ -289,12 +310,62 @@ def register_fused(cls):
     return deco
 
 
-def _plan_for(accel, library: Library, device) -> FusedPlan:
+def register_coupling(name: str, fn: Callable) -> None:
+    """Torch twin of a ``Coupling.sim`` map, by coupling name: a staged
+    chain runs on the device only when every coupling has one."""
+    _COUPLINGS[name] = fn
+
+
+def _plan_for(accel, library: Library, device, *,
+              required: bool = True) -> Optional[FusedPlan]:
+    """The plan of ``accel``'s class (MRO lookup); a class without one
+    raises, or gives None where ``required`` is False."""
     for cls in type(accel).__mro__:
         if cls in _PLANS:
             return _PLANS[cls](accel, library, build_engine(library, device))
-    raise NotImplementedError(
-        f"no population plan for {type(accel).__name__} in this port yet")
+    if required:
+        raise NotImplementedError(
+            f"no population plan for {type(accel).__name__} in this port yet")
+    return None
+
+
+def staged_plan(pipe, library: Library, eng: _Engine) -> FusedPlan:
+    """The plan factory of a ``StagedPipeline``: every stage's
+    ``stage_fn`` chained on the device through the couplings' torch
+    twins.  Raises when a stage has no plan, when a host-tailed plan is
+    not the last stage, or when a coupling has no twin."""
+    stage_plans = []
+    last = len(pipe.stages) - 1
+    for i, st in enumerate(pipe.stages):
+        p = _plan_for(st, library, eng.device)
+        if not p.device_natural and i < last:
+            raise NotImplementedError(
+                f"{pipe.name}: stage {st.name}'s plan ends on the host and "
+                "cannot feed a later stage")
+        stage_plans.append(p)
+    twins = []
+    for c in pipe.couplings:
+        name = "identity" if c.sim is None else c.name
+        if name not in _COUPLINGS:
+            raise NotImplementedError(
+                f"{pipe.name}: coupling {name!r} has no torch twin")
+        twins.append(_COUPLINGS[name])
+    counts = pipe.stage_slot_counts()
+
+    def stage_fn(genes, x, per_genome):
+        per, off = per_genome, 0
+        for i, (sp, ns) in enumerate(zip(stage_plans, counts)):
+            y = sp.stage_fn(genes[:, off:off + ns], x, per)
+            off += ns
+            per = True  # stage outputs always carry the genome axis
+            x = twins[i](y) if (i < last and twins[i] is not None) else y
+        return x
+
+    tail = stage_plans[last]
+    return FusedPlan(
+        stage_fn=stage_fn, prep=stage_plans[0].prep, post=tail.post,
+        qor_ref=tail.qor_ref, device_natural=tail.device_natural,
+    )
 
 
 def _upload_genes(accel, genomes, library: Library,
@@ -323,7 +394,13 @@ def simulate_batch(
     """(G, ...) int64 behavioural outputs of a genome population, computed
     on ``device`` (default ``"cuda"``)."""
     dev = resolve_device(device)
-    plan = _plan_for(accel, library, dev)
+    return _run_plan(_plan_for(accel, library, dev), accel, genomes,
+                     library, inputs, per_genome_inputs, dev)
+
+
+def _run_plan(plan: FusedPlan, accel, genomes, library: Library, inputs,
+              per_genome_inputs: bool, dev: torch.device) -> np.ndarray:
+    """``simulate_batch`` through a plan already built."""
     genes = _upload_genes(accel, genomes, library, dev)
     x = plan.prep(inputs, dev)
     if per_genome_inputs and x.shape[0] != genes.shape[0]:
@@ -331,23 +408,34 @@ def simulate_batch(
             f"{x.shape[0]} per-genome input sets for {genes.shape[0]} genomes")
     with torch.no_grad():
         out = plan.stage_fn(genes, x, per_genome_inputs)
-    return plan.post(out)
+    return plan.post(out, inputs, per_genome_inputs)
 
 
 def qor_batch(
     accel, genomes, library: Library, inputs, *,
     rank_genes: bool = False, peak=None, device=None,
 ) -> np.ndarray:
-    """``(genomes, inputs) → QoR`` with the outputs and their integer SSE
-    against the exact reference on ``device``; the host finishes PSNR
-    from the (G,) SSE vector."""
-    from ..core.qor import psnr_from_sse, sse_batch
+    """``(genomes, inputs) → QoR`` on ``device``.  A plan with an integer
+    exact reference keeps the outputs and their integer SSE on the
+    device; the host finishes PSNR from the (G,) SSE vector.  Otherwise
+    (a plan whose output is finished on the host, or an accelerator with
+    no plan but a ``simulate_batch`` of its own) the host takes
+    ``psnr_batch`` of the population's outputs, computed on the device
+    by that plan or by ``accel.simulate_batch``, against the exact
+    output."""
+    from ..core.qor import psnr_batch, psnr_from_sse, sse_batch
 
     dev = resolve_device(device)
-    plan = _plan_for(accel, library, dev)
-    if plan.qor_ref is None:
-        raise NotImplementedError(
-            f"{accel.name}'s plan has no integer QoR reference")
+    plan = _plan_for(accel, library, dev, required=False)
+    if plan is None or plan.qor_ref is None:
+        ref = accel.exact_output(inputs)
+        if plan is None:
+            outs = accel.simulate_batch(genomes, library, inputs,
+                                        rank_genes=rank_genes, device=dev)
+        else:
+            outs = _run_plan(plan, accel, genomes, library, inputs, False,
+                             dev)
+        return psnr_batch(ref, outs, peak)
     genes = _upload_genes(accel, genomes, library, dev)
     ref = np.asarray(plan.qor_ref(accel, inputs))
     if peak is None:

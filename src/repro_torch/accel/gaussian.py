@@ -161,6 +161,6 @@ def _gaussian_fused_plan(accel, library, eng):
     return fused.FusedPlan(
         stage_fn=stage_fn,
         prep=prep,
-        post=lambda raw: raw.cpu().numpy().astype(np.int64),
+        post=fused.host_int64,
         qor_ref=lambda a, inputs: np.asarray(a.exact_output(inputs)),
     )

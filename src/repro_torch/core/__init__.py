@@ -1,6 +1,7 @@
 # The DSE core: acl (circuit library), features (cheap extraction,
 # synthesis labels, pipelines), surrogates, nsga2/pareto/dse (the
-# search), hw (the v5e roofline cost model the labels use), qor (PSNR).
+# search), hw (the H100 and v5e roofline cost models of the labels),
+# qor (PSNR).
 #
 # NOTE: dse/features are imported lazily (import repro_torch.core.dse) to
 # avoid a circular import with repro_torch.accel, which depends on

@@ -76,7 +76,12 @@ class Circuit:
         ONE bf16 MAC: base matmul at deploy_width + deploy_rank bf16
         correction matmuls (DESIGN.md §2; the TPU-native Pareto lever —
         on the MXU, power-of-two truncations are the cheap family, exotic
-        logic-level circuits cost MORE than exact)."""
+        logic-level circuits cost MORE than exact).
+
+        This is a surrogate FEATURE (cheap extractor, circuit-level
+        pre-filter), not a label, so it stays on the JAX package's
+        ``hw.V5E`` cost model whatever constants the labels use: the
+        port's features stay bit-identical to the reference's."""
         from .. import hw
 
         base = hw.V5E.dtype_cost_factor(self.deploy_width)

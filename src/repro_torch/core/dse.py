@@ -30,6 +30,7 @@ if TYPE_CHECKING:  # avoid circular import (accel depends on core.acl)
 from ..device import resolve_device
 from .acl.library import Library, default_library
 from .features import synth
+from .hw import H100_SXM, Hardware
 from .nsga2 import NSGA2Config, NSGA2Result
 from .pareto import non_dominated_mask
 
@@ -51,9 +52,12 @@ def default_labeler(
     qor_seed: int = synth.DEFAULT_QOR_SEED,
     cache: Optional[dict] = None,
     device=None,
+    hw: Hardware = H100_SXM,
 ):
     """The in-process labeler ``run_dse`` uses when none is injected; it
-    labels on ``device`` (default ``"cuda"``)."""
+    labels on ``device`` (default ``"cuda"``) with the hardware cost
+    model ``hw`` (default the H100's; ``hw.V5E`` gives the JAX package's
+    labels)."""
     dev = resolve_device(device)
     synth_cache = {} if cache is None else cache
     qor_inputs = accel.sample_inputs(n_qor_samples, seed=qor_seed)
@@ -62,7 +66,7 @@ def default_labeler(
         return synth.label_variants(
             accel, genomes, library,
             rank_genes=rank_genes, qor_inputs=qor_inputs, cache=synth_cache,
-            device=dev,
+            device=dev, hw=hw,
         )
 
     return labeler

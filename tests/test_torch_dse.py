@@ -13,14 +13,16 @@ import pytest
 import torch
 
 from repro.accel import GaussianFilter as RefGaussian
+from repro.accel import MCMAccelerator as RefMCM
 from repro.core import dse as ref_dse
 from repro.core.acl.library import default_library as ref_library
 from repro.core.nsga2 import NSGA2Config as RefNSGA2Config
 from repro_torch import convert
-from repro_torch.accel import GaussianFilter
+from repro_torch.accel import GaussianFilter, HEVCDct, MCMAccelerator
 from repro_torch.core import dse
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.features import synth
+from repro_torch.core.hw import V5E
 from repro_torch.core.nsga2 import NSGA2Config
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,11 +33,16 @@ SMALL = dict(n_train=24, n_qor_samples=2)
 SMALL_NSGA = dict(pop_size=16, n_parents=8, n_generations=2)
 
 
-def test_run_dse_front_identical_to_reference():
-    got = dse.run_dse(GaussianFilter(), LIB,
+def _front_identical(accel, ref):
+    """run_dse of the port, labeling on the JAX package's cost model
+    (``hw=V5E``) on the CPU, against the JAX package's run_dse."""
+    labeler = dse.default_labeler(accel, LIB,
+                                  n_qor_samples=SMALL["n_qor_samples"],
+                                  device="cpu", hw=V5E)
+    got = dse.run_dse(accel, LIB,
                       dse.DSEConfig(**SMALL, nsga=NSGA2Config(**SMALL_NSGA)),
-                      device="cpu")
-    want = ref_dse.run_dse(RefGaussian(), RLIB, ref_dse.DSEConfig(
+                      labeler=labeler, device="cpu")
+    want = ref_dse.run_dse(ref, RLIB, ref_dse.DSEConfig(
         **SMALL, nsga=RefNSGA2Config(**SMALL_NSGA)))
     assert np.array_equal(got.front_genomes, want.front_genomes)
     assert got.front_objectives.tobytes() == want.front_objectives.tobytes()
@@ -43,6 +50,14 @@ def test_run_dse_front_identical_to_reference():
     for k in ("qor", "energy"):
         assert got.train_labels[k].tobytes() == want.train_labels[k].tobytes()
     assert got.val_pcc == want.val_pcc
+
+
+def test_run_dse_front_identical_to_reference():
+    _front_identical(GaussianFilter(), RefGaussian())
+
+
+def test_run_dse_front_identical_to_reference_mcm2():
+    _front_identical(MCMAccelerator(1), RefMCM(1))
 
 
 def test_label_unique_scatters_back():
@@ -138,12 +153,16 @@ def _entry_points():
     acc = GaussianFilter()
     g = acc.exact_genome(LIB)[None]
     x = acc.sample_inputs(1)
+    dct = HEVCDct()
+    g_dct = dct.exact_genome(LIB)[None]
     return {
         "default_labeler": lambda: dse.default_labeler(acc, LIB),
         "label_variants": lambda: synth.label_variants(acc, g, LIB,
                                                        qor_inputs=x),
         "qor_batch": lambda: acc.qor_batch(g, LIB, x),
         "simulate_batch": lambda: acc.simulate_batch(g, LIB, x),
+        "hevc_qor_batch": lambda: dct.qor_batch(g_dct, LIB, x),
+        "hevc_simulate_batch": lambda: dct.simulate_batch(g_dct, LIB, x),
         "run_dse": lambda: dse.run_dse(acc, LIB, dse.DSEConfig(
             **SMALL, nsga=NSGA2Config(**SMALL_NSGA))),
         "serve_batch": lambda: serve_batch(lm, batch=1, prompt_len=4, gen=2),
@@ -153,7 +172,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["default_labeler", "label_variants",
                                   "qor_batch", "simulate_batch", "run_dse",
-                                  "serve_batch", "Generator"])
+                                  "serve_batch", "Generator",
+                                  "hevc_qor_batch", "hevc_simulate_batch"])
 def test_entry_point_without_device_raises_without_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
