@@ -25,7 +25,9 @@ Phases, one JSON object per line on standard output:
    call too.  population_lut and rank_k also run at the shapes the
    DCT's labels give them (the signed mul8s gather at 1024 and 784 rows,
    shared and per-genome cols; one (256,4)@(4,1) per-column deploy
-   product of 4 signed groups).  Each row's bound is the largest of bytes over the HBM rate,
+   product of 4 signed groups; the per-circuit deployment
+   (256,256)@(256,128) of pipelines B/E, one group, unsigned and signed,
+   at the largest deploy rank of each kind).  Each row's bound is the largest of bytes over the HBM rate,
    operations over the rate of the units that run them, the LUT
    matmul's table lookups over the shared-memory lookup rate and, for
    the scan's and the softmax's exponentials, their least time split
@@ -40,18 +42,40 @@ Phases, one JSON object per line on standard output:
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes of
    ``gaussian3x3`` (then a second batch of 1000), ``mcm1``…``mcm4``,
    ``hevc_dct4x4`` (and a second batch), ``smoothed_dct`` (and a second
-   batch), ``smoothed_dct/stage0`` and ``/stage1``.  ``qor`` and
+   batch), ``smoothed_dct/stage0`` and ``/stage1``, each through a fresh
+   ``SynthCache`` (structural tier on, its ``stats()`` printed), then
+   one ``gaussian3x3`` batch with the structural tier off.  ``qor`` and
    ``energy`` must be bit-identical to ``device="cpu"`` on a 64-genome
-   subset, ``qor`` to the per-genome numpy ``Accelerator.qor`` on 8
-   genomes; rank_k must launch exactly its deployment's launches
-   (``DEPLOY_LAUNCHES``: 1, 8 for the DCT's two passes, 9 for the chain)
-   once per unique variant synthesized.
+   subset (labeled through a cache of its own), ``qor`` to the
+   per-genome numpy ``Accelerator.qor`` on 8 genomes; the deployment
+   runs paid must be those ``predicted_runs`` counts on the host from
+   the batches' ``deploy_signature`` values, and rank_k must launch
+   exactly its deployment's launches (``DEPLOY_LAUNCHES``: 1, 8 for the
+   DCT's two passes, 9 for the chain) once per run paid.
 5. ``dse``     — ``run_dse`` on ``GaussianFilter``, then on ``HEVCDct``, at
    the paper's widths (n_train=1000, pop_size=1000, n_parents=200, 4 QoR
    images), with ``n_generations`` cut as the ``reduced`` field says; the
    front must hold designs below its best QoR (approximate ones), and
-   its labels are checked against ``device="cpu"``.
-6. ``serve_granite-8b``, ``serve_granite-8b_approx``,
+   its labels are checked against ``device="cpu"`` (a cache of its own).
+6. ``cache``   — the persistent synthesis cache, for ``gaussian3x3`` and
+   ``hevc_dct4x4``, on a ``.jsonl`` file and a ``.segd`` root in a
+   temporary directory: a cold 1000-genome batch, then a new cache
+   object on the same path and the same batch, which must launch no
+   rank_k, pay no run, answer each unique variant from the identity
+   tier and give labels equal to the cold ones.
+7. ``figs``    — the paper's figure families.  Fig. 5 on ``mcm1``: 1000
+   training and 1000 test genomes labeled on the card, every
+   multiplier's per-circuit deployment (pipelines B/E's features) on
+   the card against the CPU's, then the six pipelines' PCC, time per
+   variant and hours for 10^6 variants, with the claims ``D_fast`` and
+   ``D_accurate``.  Figs. 8/9 on ``FIGS_ROWS``: ``run_dse`` against
+   ``approxfpgas_search`` and ``random_search`` at the synthesis budget
+   n_train + n_parents, their hypervolume ratios, and each front held
+   against a CPU re-label through a fresh cache.  Fig. 7 from the
+   ``hevc_dct4x4`` run of the dse phase: the hypervolume by generation,
+   the first generation at 95% of the final and the front size.  The
+   claims are printed, not gated.
+8. ``serve_granite-8b``, ``serve_granite-8b_approx``,
    ``serve_falcon-mamba-7b`` — the LM serving path at full width and
    depth, one model at a time (freed before the next): weights drawn from
    the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
@@ -69,8 +93,8 @@ Phases, one JSON object per line on standard output:
    at rank 3.
 
 Every kernel's launch count is set to 0 just before each run of phases 4
-to 6 (each accelerator's labels, each dse, each serve) and read just
-after; a kernel of the phase's main path
+to 8 (each accelerator's labels, each dse, each cache batch, each figure
+run, each serve) and read just after; a kernel of the phase's main path
 (``MAIN_PATH``) that the phase did not launch, or did not launch once per
 layer for the serve phases, fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
@@ -183,6 +207,8 @@ SCAN_CASES = [(1, 16, 8, 4, "JAX test shape"),
 MAIN_PATH = {
     "labels": ("population_lut", "rank_k"),
     "dse": ("population_lut", "rank_k"),
+    "cache": ("population_lut", "rank_k"),
+    "figs": ("population_lut", "rank_k"),
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
@@ -196,7 +222,17 @@ DEPLOY_LAUNCHES = {
     "hevc_dct4x4": 8, "smoothed_dct": 9,
     "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
-PHASES = ("device", "build", "kernel", "labels", "dse", "serve")
+PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
+          "serve")
+# the figs phase: Fig. 5's 1000 training and 1000 test genomes; Figs.
+# 8/9's MCM rows and NSGA-II generations; the power surrogate of both
+# (the JAX package's default, bayesian_ridge, is singular on pipeline E's
+# features of mcm1's 1000 training labels; see the figs line's
+# ``reduced``)
+FIG5_TRAIN = FIG5_TEST = 1000
+FIGS_ROWS = (0, 1, 2, 3)
+FIGS_GENERATIONS = 25
+FIGS_HW_MODEL = "ridge"
 
 
 class SmokeFailure(RuntimeError):
@@ -505,6 +541,7 @@ def phase_kernels(seed: int) -> list:
         ))
 
     rows += _hevc_rows(rng, dev, lib)
+    rows += _circuit_rows(dev, lib)
     rows += _lut_rows(rng, dev, lib, x9, w9, specs)
     rows += _flash_rows(rng, dev)
     rows += _scan_rows(rng, dev)
@@ -592,6 +629,46 @@ def _hevc_rows(rng, dev, lib) -> list:
         nbytes=4.0 * (x.numel() + w.numel() + m + packed.size),
         ops=2.0 * m * (4 + sum(sp.rank for sp in specs)),
     ))
+    return rows
+
+
+def _circuit_rows(dev, lib) -> list:
+    """rank_k at the per-circuit deployment that pipelines B and E run
+    (``circuit_features_synth``): (256,256)@(256,128), one group, on the
+    operands it draws (numpy seed 0), unsigned and signed, each with the
+    circuit of the largest deploy rank of its kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.approx_matmul import (
+        from_circuit, grouped_rank_k_matmul, grouped_rank_k_matmul_kernel,
+        pack_groups,
+    )
+
+    rows = []
+    m, k, n = 256, 256, 128
+    for kind, signed in (("mul8u", False), ("mul8s", True)):
+        c = max(lib.kind(kind), key=lambda c: c.deploy_rank)
+        spec = from_circuit(c)
+        rng = np.random.default_rng(0)
+        lo, hi = (-128, 128) if signed else (0, 256)
+        x = torch.from_numpy(rng.integers(lo, hi, (m, k)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(rng.integers(lo, hi, (k, n)).astype(np.int32)).to(dev)
+        packed = pack_groups([spec], [(0, k)])
+        packed_dev = torch.from_numpy(packed).to(dev)
+        rows.append(_kernel_row(
+            "rank_k", f"({m},{k})@({k},{n}) r={spec.rank} "
+            + ("signed" if signed else "unsigned")
+            + f" {c.name}, one group (per-circuit deploy of pipelines B/E, "
+            "1 launch)",
+            "src/repro_torch/csrc/rank_k.cu",
+            "src/repro/kernels/approx_matmul/kernel.py:72",
+            lambda x=x, w=w, p=packed: grouped_rank_k_matmul_kernel(x, w, p),
+            lambda x=x, w=w, p=packed_dev: grouped_rank_k_matmul(x, w, p),
+            _rank_close,
+            nbytes=4.0 * (x.numel() + w.numel() + m * n + packed.size),
+            ops=2.0 * m * k * n * (1 + spec.rank),
+        ))
     return rows
 
 
@@ -937,37 +1014,78 @@ def _label_accels():
             + [(view, 1) for view in smoothed.stage_views()])
 
 
-def phase_labels(acc, batches: int, seed: int) -> dict:
+def predicted_runs(acc, lib, genomes, *, structural: bool = True) -> dict:
+    """Deployment runs a fresh ``SynthCache`` pays for ``genomes``,
+    counted on the host from the accelerator's ``deploy_signature``: one
+    a distinct structure plus, per graph family, min(K, identities that
+    collide with a structure already run) verification runs (K is
+    ``_STRUCT_VERIFY_SAMPLES``); with the structural tier off, one a
+    unique identity."""
+    from repro_torch.core.features import synth
+    from repro_torch.kernels.approx_matmul import from_circuit
+
+    mul_idx = acc.mul_slot_indices()
+    fams: dict = {}
+    for g in genomes:
+        circuits, ranks = acc.decode(g, lib)
+        specs = [from_circuit(circuits[i], r) for i, r in zip(mul_idx, ranks)]
+        family, classes = acc.deploy_signature(specs)
+        ids, structs = fams.setdefault(repr(family), (set(), set()))
+        ids.add(synth._identity_signature(acc, specs))
+        structs.add(repr(classes))
+    identities = sum(len(i) for i, _ in fams.values())
+    structures = sum(len(st) for _, st in fams.values())
+    verify = sum(min(synth._STRUCT_VERIFY_SAMPLES, len(i) - len(st))
+                 for i, st in fams.values())
+    return {"identities": identities, "families": len(fams),
+            "structures": structures, "verify_runs": verify,
+            "runs": structures + verify if structural else identities}
+
+
+def phase_labels(acc, batches: int, seed: int, *,
+                 structural: bool = True) -> dict:
     """``default_labeler(acc, lib, n_qor_samples=4, device="cuda")`` on
-    ``batches`` batches of 1000 numpy-seeded genomes (the second warm).
+    ``batches`` batches of 1000 numpy-seeded genomes (the second warm),
+    through a fresh ``SynthCache`` (``structural=False``: with the
+    structural tier off, as ``REPRO_SYNTH_STRUCTURAL=0`` sets it).
     ``qor`` and ``energy`` must be bit-identical to ``device="cpu"`` on a
-    64-genome subset, ``qor`` to the per-genome numpy ``Accelerator.qor``
-    on 8 genomes; rank_k must launch exactly its deployment's launches
-    (``DEPLOY_LAUNCHES``) once per unique variant synthesized."""
+    64-genome subset (labeled through a cache of its own), ``qor`` to the
+    per-genome numpy ``Accelerator.qor`` on 8 genomes; the runs paid must
+    be ``predicted_runs`` and rank_k must launch exactly its deployment's
+    launches (``DEPLOY_LAUNCHES``) once per run paid."""
     import numpy as np
     import torch
 
     from repro_torch import _build
     from repro_torch.core.acl.library import default_library
     from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
 
     lib = default_library()
     rng = np.random.default_rng(seed)
     gs = [_random_genomes(acc, lib, 1000, rng) for _ in range(batches)]
+    pred = predicted_runs(acc, lib, np.concatenate(gs), structural=structural)
 
-    _build.reset_launches()
-    synth_cache: dict = {}   # one entry per unique variant synthesized
-    labeler = default_labeler(acc, lib, n_qor_samples=4, cache=synth_cache,
-                              device="cuda")
-    labs, walls = [], []
-    for g in gs:
-        t0 = time.perf_counter()
-        labs.append(labeler(g))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    launches = dict(_build.LAUNCHES)
+    scache = synth.SynthCache()
+    ctx_cache: dict = {}   # one entry per unique variant labeled
+    keep = synth.STRUCTURAL_KEYS
+    synth.STRUCTURAL_KEYS = structural
+    try:
+        _build.reset_launches()
+        labeler = default_labeler(acc, lib, n_qor_samples=4, cache=ctx_cache,
+                                  synth_cache=scache, device="cuda")
+        labs, walls = [], []
+        for g in gs:
+            t0 = time.perf_counter()
+            labs.append(labeler(g))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = dict(_build.LAUNCHES)
+    finally:
+        synth.STRUCTURAL_KEYS = keep
+    stats = scache.stats()
 
-    what = f"labels {acc.name}"
+    what = f"labels {acc.name}" + ("" if structural else " (identity only)")
     for i, (g, lab) in enumerate(zip(gs, labs)):
         _check_labels(lab, len(g), f"{what} batch {i + 1}")
     check(labs[0]["qor"][0] == 100.0, f"{what}: exact genome's QoR is not "
@@ -975,12 +1093,19 @@ def phase_labels(acc, batches: int, seed: int) -> dict:
     for k in MAIN_PATH["labels"]:
         check(launches[k] > 0, f"{what}: launched no {k} kernel")
     per_variant = DEPLOY_LAUNCHES[acc.name]
-    check(launches["rank_k"] == per_variant * len(synth_cache),
+    runs_paid = stats["compiles"]
+    check(launches["rank_k"] == per_variant * runs_paid,
           f"{what}: launched rank_k {launches['rank_k']} times for "
-          f"{len(synth_cache)} unique variants synthesized, "
-          f"{per_variant} launches each")
+          f"{runs_paid} deployment runs paid, {per_variant} launches each")
+    check(runs_paid == pred["runs"] and stats["pinned_families"] == 0,
+          f"{what}: paid {runs_paid} runs ({stats}), predicted {pred}")
+    check(len(ctx_cache) == pred["identities"],
+          f"{what}: {len(ctx_cache)} unique variants, predicted "
+          f"{pred['identities']}")
     sub = 64
-    cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(gs[0][:sub])
+    cpu = default_labeler(acc, lib, n_qor_samples=4,
+                          synth_cache=synth.SynthCache(),
+                          device="cpu")(gs[0][:sub])
     for k in ("qor", "energy"):
         check(np.array_equal(cpu[k], labs[0][k][:sub]),
               f"{what}: cuda {k} differs from cpu on the {sub}-genome subset")
@@ -991,14 +1116,15 @@ def phase_labels(acc, batches: int, seed: int) -> dict:
               f"{what}: cuda qor of genome {t} differs from the per-genome "
               "numpy qor")
     out = {
-        "phase": "labels", "accel": acc.name,
+        "phase": "labels", "accel": acc.name, "structural": structural,
         "genomes": [len(g) for g in gs],
         "batch_s": walls,
         "labels_per_s": [len(g) / w for g, w in zip(gs, walls)],
         "sim_s": [float(lab["sim_time"].sum()) for lab in labs],
         "synth_s": [float(lab["synth_time"].sum()) for lab in labs],
         "cpu_subset_bit_identical": {"genomes": sub, "keys": ["qor", "energy"]},
-        "unique_variants_synthesized": len(synth_cache),
+        "unique_variants_synthesized": len(ctx_cache),
+        "runs_paid": runs_paid, "predicted": pred, "synth_cache": stats,
         "rank_k_launches_per_variant": per_variant,
         "launches": launches,
     }
@@ -1006,13 +1132,15 @@ def phase_labels(acc, batches: int, seed: int) -> dict:
     return out
 
 
-def phase_dse(acc, generations: int) -> dict:
+def phase_dse(acc, generations: int) -> tuple:
+    """``run_dse`` at the paper's widths; returns (its line, the result)."""
     import numpy as np
     import torch
 
     from repro_torch import _build
     from repro_torch.core.acl.library import default_library
     from repro_torch.core.dse import DSEConfig, default_labeler, run_dse
+    from repro_torch.core.features import synth
     from repro_torch.core.nsga2 import NSGA2Config
 
     lib = default_library()
@@ -1043,7 +1171,9 @@ def phase_dse(acc, generations: int) -> dict:
     n_approx = int(np.sum(front_qor < front_qor.max()))
     check(n_approx > 0,
           f"dse {acc.name}: the front holds no approximate design")
-    cpu = default_labeler(acc, lib, n_qor_samples=4, device="cpu")(front_g)
+    cpu = default_labeler(acc, lib, n_qor_samples=4,
+                          synth_cache=synth.SynthCache(),
+                          device="cpu")(front_g)
     check(np.array_equal(-cpu["qor"], front_o[:, 0])
           and np.array_equal(cpu["energy"], front_o[:, 1]),
           f"dse {acc.name}: front objectives differ from a cpu re-label")
@@ -1062,6 +1192,315 @@ def phase_dse(acc, generations: int) -> dict:
         "val_pcc": res.val_pcc, "timings_s": res.timings,
         "launches": launches,
     }
+    emit(out)
+    return out, res
+
+
+def _label_once(labeler, genomes):
+    """(labels, wall seconds, launches) of one labeler call, the launch
+    counts set to 0 just before it."""
+    import torch
+
+    from repro_torch import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    labels = labeler(genomes)
+    torch.cuda.synchronize()
+    return labels, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_cache(acc, seed: int) -> dict:
+    """The persistent synthesis cache on the card, in a temporary
+    directory, for a ``.jsonl`` file and a ``.segd`` root
+    (``open_synth_cache``): a cold 1000-genome batch, then a new cache
+    object on the same path and the same batch again, which must launch
+    no rank_k, pay no run, answer every unique variant from the identity
+    tier and give labels equal to the cold ones."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+
+    lib = default_library()
+    g = _random_genomes(acc, lib, 1000, np.random.default_rng(seed))
+    what = f"cache {acc.name}"
+    per_variant = DEPLOY_LAUNCHES[acc.name]
+    out = {"phase": "cache", "accel": acc.name, "genomes": len(g)}
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("jsonl", "segd"):
+            path = str(Path(tmp) / f"{acc.name}.{backend}")
+            runs = {}
+            for run in ("cold", "warm"):
+                cache = synth.open_synth_cache(path)
+                ctx: dict = {}
+                labeler = default_labeler(acc, lib, n_qor_samples=4,
+                                          cache=ctx, synth_cache=cache,
+                                          device="cuda")
+                labels, wall, launches = _label_once(labeler, g)
+                stats = cache.stats()
+                cache.close()
+                _add_launches(total, launches)
+                _check_labels(labels, len(g), f"{what} {backend} {run}")
+                runs[run] = {"labels": labels, "wall_s": wall,
+                             "unique_variants": len(ctx),
+                             "launches": launches, "stats": stats}
+            cold, warm = runs["cold"], runs["warm"]
+            check(cold["launches"]["rank_k"]
+                  == per_variant * cold["stats"]["compiles"] > 0,
+                  f"{what} {backend}: cold launched rank_k "
+                  f"{cold['launches']['rank_k']} times for "
+                  f"{cold['stats']['compiles']} runs paid")
+            check(warm["launches"]["rank_k"] == 0
+                  and warm["stats"]["compiles"] == 0,
+                  f"{what} {backend}: the warm batch launched rank_k "
+                  f"{warm['launches']['rank_k']} times, "
+                  f"{warm['stats']['compiles']} runs paid")
+            check(warm["launches"]["population_lut"] > 0,
+                  f"{what} {backend}: the warm batch ran no QoR gather")
+            check(warm["stats"]["identity_hits"] == cold["unique_variants"],
+                  f"{what} {backend}: {warm['stats']['identity_hits']} "
+                  f"identity hits for {cold['unique_variants']} unique "
+                  "variants")
+            for k in ("qor", "latency", "energy", "flops", "hbm_bytes"):
+                check(cold["labels"][k].tobytes()
+                      == warm["labels"][k].tobytes(),
+                      f"{what} {backend}: warm {k} differs from cold")
+            out[backend] = {
+                run: {"wall_s": r["wall_s"],
+                      "labels_per_s": len(g) / r["wall_s"],
+                      "synth_s": float(r["labels"]["synth_time"].sum()),
+                      "unique_variants": r["unique_variants"],
+                      "launches": r["launches"], "synth_cache": r["stats"]}
+                for run, r in runs.items()}
+    for k in MAIN_PATH["cache"]:
+        check(total.get(k, 0) > 0, f"{what}: launched no {k} kernel")
+    out["launches"] = total
+    emit(out)
+    return out
+
+
+def _fig5(lib, seed: int, total: dict) -> dict:
+    """Fig. 5 on mcm1: six pipelines on 1000 training and 1000 test
+    genomes labeled on the card through a fresh ``SynthCache``; every
+    multiplier's per-circuit deployment (pipelines B/E's features) run
+    on the card and held against the CPU's."""
+    import numpy as np
+
+    from repro_torch.accel import MCMAccelerator
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+    from repro_torch.core.features.pipelines import (
+        PIPELINES, evaluate_pipeline,
+    )
+
+    acc = MCMAccelerator(0)
+    rng = np.random.default_rng(seed)
+    g = _random_genomes(acc, lib, FIG5_TRAIN + FIG5_TEST, rng)
+    scache = synth.SynthCache()
+    labels, wall, launches = _label_once(default_labeler(
+        acc, lib, n_qor_samples=4, synth_cache=scache, device="cuda"), g)
+    _add_launches(total, launches)
+    _check_labels(labels, len(g), "figs fig5 labels")
+    runs_paid = scache.stats()["compiles"]
+    check(launches["rank_k"] == DEPLOY_LAUNCHES[acc.name] * runs_paid,
+          f"figs fig5: {launches['rank_k']} rank_k launches for {runs_paid} "
+          "runs paid")
+
+    from repro_torch import _build
+
+    muls = lib.kind("mul8u") + lib.kind("mul8s")
+    n_slot_muls = sum(len(lib.kind(k)) for k in {s.kind for s in acc.slots}
+                      if k != "add16")
+    _build.reset_launches()
+    card = np.stack([synth.circuit_features_synth(c, device="cuda")
+                     for c in muls])
+    cpu = np.stack([synth.circuit_features_synth(c, device="cpu")
+                    for c in muls])
+    check(card[:, :5].tobytes() == cpu[:, :5].tobytes(),
+          "figs fig5: per-circuit features on the card differ from the CPU's")
+    tr = {k: v[:FIG5_TRAIN] for k, v in labels.items()}
+    te = {k: v[FIG5_TRAIN:] for k, v in labels.items()}
+    reports = {p: evaluate_pipeline(p, acc, lib, g[:FIG5_TRAIN], tr,
+                                    g[FIG5_TRAIN:], te,
+                                    hw_model=FIGS_HW_MODEL, device="cuda")
+               for p in PIPELINES}
+    launches = dict(_build.LAUNCHES)
+    _add_launches(total, launches)
+    # one launch a multiplier above, then B's and E's tables of the
+    # row's own kind
+    check(launches["rank_k"] == len(muls) + 2 * n_slot_muls,
+          f"figs fig5: {launches['rank_k']} per-circuit rank_k launches, "
+          f"expected {len(muls)} + 2 x {n_slot_muls}")
+    for p, r in reports.items():
+        check(np.isfinite(r.pcc_hw) and np.isfinite(r.pcc_qor),
+              f"figs fig5: pipeline {p} PCC not finite")
+    rep_a, rep_d = reports["A"], reports["D"]
+    claim_fast = bool(rep_d.explore_time_1m < rep_a.explore_time_1m / 20
+                      and rep_d.per_variant_time
+                      < rep_a.per_variant_time / 10)
+    claim_accurate = bool(rep_d.pcc_hw > 0.85 * max(reports["B"].pcc_hw,
+                                                    reports["F"].pcc_hw))
+    out = {"phase": "figs", "fig": 5, "accel": acc.name,
+           "n_train": FIG5_TRAIN, "n_test": FIG5_TEST,
+           "hw_model": FIGS_HW_MODEL,
+           "label_s": wall, "runs_paid": runs_paid,
+           "unique_genomes": int(len(np.unique(g, axis=0))),
+           "per_circuit_deploys": len(muls),
+           "per_circuit_wall_s": float(card[:, 5].sum()),
+           "pipelines": {p: {"pcc_hw": r.pcc_hw, "pcc_qor": r.pcc_qor,
+                             "per_variant_s": r.per_variant_time,
+                             "setup_s": r.setup_time,
+                             "train_s": r.train_time,
+                             "explore_1m_hours": r.explore_time_1m / 3600}
+                         for p, r in reports.items()},
+           "claim_D_fast": claim_fast, "claim_D_accurate": claim_accurate}
+    emit(out)
+    return out
+
+
+def _relabel_front(acc, lib, genomes, obj, what: str) -> None:
+    """Hold a front's (-qor, energy) against a CPU re-label through a
+    fresh ``SynthCache``."""
+    import numpy as np
+
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+
+    cpu = default_labeler(acc, lib, n_qor_samples=4,
+                          synth_cache=synth.SynthCache(),
+                          device="cpu")(genomes)
+    check(np.array_equal(-cpu["qor"], obj[:, 0])
+          and np.array_equal(cpu["energy"], obj[:, 1]),
+          f"{what}: front objectives differ from a cpu re-label")
+
+
+def _fig89(lib, row: int, seed: int, total: dict) -> dict:
+    """Figs. 8/9 on one MCM row: ``run_dse`` against ``approxfpgas_search``
+    and ``random_search`` at its synthesis budget, n_train + n_parents;
+    hypervolume ratios over a common reference point."""
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.accel import MCMAccelerator
+    from repro_torch.accel.approxfpgas import approxfpgas_search
+    from repro_torch.core.dse import DSEConfig, random_search, run_dse
+    from repro_torch.core.nsga2 import NSGA2Config
+    from repro_torch.core.pareto import hypervolume_2d
+
+    acc = MCMAccelerator(row)
+    cfg = DSEConfig(
+        n_train=1000, n_qor_samples=4, hw_model=FIGS_HW_MODEL,
+        nsga=NSGA2Config(pop_size=1000, n_parents=200,
+                         n_generations=FIGS_GENERATIONS, seed=seed),
+        seed=seed,
+    )
+    budget = cfg.n_train + cfg.nsga.n_parents
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ours = run_dse(acc, lib, cfg, device="cuda")
+    t1 = time.perf_counter()
+    soa_g, soa_obj, soa_mask, rlib = approxfpgas_search(
+        acc, lib, n_budget=budget, seed=seed,
+        qor_inputs=acc.sample_inputs(4, seed=1234), device="cuda")
+    t2 = time.perf_counter()
+    rnd_g, rnd_obj, rnd_mask = random_search(acc, lib, n=budget,
+                                             seed=seed + 1, device="cuda")
+    t3 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    _add_launches(total, launches)
+    what = f"figs fig89 {acc.name}"
+    fronts = {"ours": (ours.front_genomes, ours.front_objectives, lib),
+              "approxfpgas": (soa_g[soa_mask], soa_obj[soa_mask], rlib),
+              "random": (rnd_g[rnd_mask], rnd_obj[rnd_mask], lib)}
+    for name, (fg, fo, flib) in fronts.items():
+        check(len(fg) > 0 and np.all(np.isfinite(fo)),
+              f"{what}: {name} front empty or not finite")
+        _relabel_front(acc, flib, fg, fo, f"{what} {name}")
+    obj_ours = ours.true_objectives
+    allobj = np.concatenate([obj_ours, soa_obj, rnd_obj])
+    ref = allobj.max(axis=0) + 1e-9
+    hv = {"ours": hypervolume_2d(obj_ours, ref),
+          "approxfpgas": hypervolume_2d(soa_obj, ref),
+          "random": hypervolume_2d(rnd_obj, ref)}
+    out = {"phase": "figs", "fig": "8/9", "accel": acc.name,
+           "budget": budget, "n_train": cfg.n_train,
+           "pop_size": cfg.nsga.pop_size, "n_parents": cfg.nsga.n_parents,
+           "n_generations": FIGS_GENERATIONS, "hw_model": FIGS_HW_MODEL,
+           "hypervolume": hv,
+           "hv_ratio_vs_approxfpgas": hv["ours"] / max(hv["approxfpgas"],
+                                                       1e-12),
+           "hv_ratio_vs_random": hv["ours"] / max(hv["random"], 1e-12),
+           "front_sizes": {k: int(len(v[0])) for k, v in fronts.items()},
+           "restricted_library": len(rlib),
+           "wall_s": {"run_dse": t1 - t0, "approxfpgas": t2 - t1,
+                      "random": t3 - t2},
+           "val_pcc": ours.val_pcc, "launches": launches}
+    emit(out)
+    return out
+
+
+def _fig7(res) -> dict:
+    """Fig. 7 from the ``hevc_dct4x4`` result of the dse phase: the
+    per-generation hypervolume of the surrogate-estimated population
+    (running best, over the final), the first generation at 95%, and the
+    final front size."""
+    import numpy as np
+
+    from repro_torch.core.pareto import hypervolume_2d
+
+    hist = res.search.history
+    all_obj = np.concatenate([lg.objectives for lg in hist])
+    ref = all_obj.max(axis=0) + 1e-9
+    hvs = np.maximum.accumulate(np.asarray(
+        [hypervolume_2d(lg.objectives[:, :2], ref[:2]) for lg in hist]))
+    final = hvs[-1] if hvs[-1] > 0 else 1.0
+    first95 = int(np.argmax(hvs >= 0.95 * final))
+    out = {"phase": "figs", "fig": 7, "accel": res.accel_name,
+           "generations": len(hist), "first_gen_at_95pct_hv": first95,
+           "hv_by_generation": [float(h / final) for h in hvs],
+           "final_front_size": int(res.front_mask.sum())}
+    emit(out)
+    return out
+
+
+def phase_figs(seed: int, hevc_result=None) -> dict:
+    """The paper's figure families on the card (module docstring, phase
+    7).  Launch counts are set to 0 at the start and summed over the
+    phase's runs; the CPU re-labels launch nothing."""
+    from repro_torch.core.acl.library import default_library
+
+    lib = default_library()
+    total: dict = {}
+    lines = {"fig5": _fig5(lib, seed, total),
+             "fig89": [_fig89(lib, r, seed, total) for r in FIGS_ROWS]}
+    if hevc_result is not None:
+        lines["fig7"] = _fig7(hevc_result)
+    for k in MAIN_PATH["figs"]:
+        check(total.get(k, 0) > 0, f"figs: launched no {k} kernel")
+    out = {"phase": "figs", "launches": total,
+           "reduced": {
+               "fig89_rows": {"paper": ["mcm1", "mcm2", "mcm3", "mcm4"],
+                              "run": [f"mcm{r + 1}" for r in FIGS_ROWS]},
+               "fig89_n_generations": {"paper": 1000, "repo_default": 100,
+                                       "run": FIGS_GENERATIONS},
+               "hw_model": {"repo_default": "bayesian_ridge",
+                            "run": FIGS_HW_MODEL}},
+           "claims": {
+               "D_fast": lines["fig5"]["claim_D_fast"],
+               "D_accurate": lines["fig5"]["claim_D_accurate"],
+               "hv_ratio_vs_approxfpgas_ge_1": {
+                   ln["accel"]: ln["hv_ratio_vs_approxfpgas"] >= 1.0
+                   for ln in lines["fig89"]}}}
     emit(out)
     return out
 
@@ -1393,11 +1832,24 @@ def main(argv=None) -> int:
         if "labels" in phases:
             runs += [phase_labels(acc, batches, args.seed)
                      for acc, batches in _label_accels()]
+            from repro_torch.accel import GaussianFilter
+
+            runs.append(phase_labels(GaussianFilter(), 1, args.seed,
+                                     structural=False))
+        hevc_result = None
         if "dse" in phases:
             from repro_torch.accel import GaussianFilter, HEVCDct
 
-            runs.append(phase_dse(GaussianFilter(), args.generations))
-            runs.append(phase_dse(HEVCDct(), args.generations))
+            runs.append(phase_dse(GaussianFilter(), args.generations)[0])
+            line, hevc_result = phase_dse(HEVCDct(), args.generations)
+            runs.append(line)
+        if "cache" in phases:
+            from repro_torch.accel import GaussianFilter, HEVCDct
+
+            runs += [phase_cache(acc, args.seed)
+                     for acc in (GaussianFilter(), HEVCDct())]
+        if "figs" in phases:
+            runs.append(phase_figs(args.seed, hevc_result))
         if "serve" in phases:
             runs.append(phase_serve("granite-8b", args.seed))
             runs.append(phase_serve("granite-8b", args.seed, approx=True))

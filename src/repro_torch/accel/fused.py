@@ -24,10 +24,14 @@ Bit-exactness rules, in the order they are enforced:
 
 PyTorch runs eagerly, so the engine has no compile cache, no population
 bucketing and no fallback: on a CUDA device it launches its kernels or
-raises.  Plans are registered per accelerator class with
-``register_fused``; a ``StagedPipeline`` runs its whole chain on the
-device through ``staged_plan`` when every stage has a plan and every
-coupling a torch twin (``register_coupling``), and raises otherwise.
+raises.  Each device run is an ``obs`` span ``sim.fused`` and counts in
+``stats()`` and in the ``repro_sim_fused_*_total`` counters
+(``fused_calls`` for a population's outputs, ``fused_qor_calls`` for
+its QoR with the SSE on the device), the JAX package's names.  Plans
+are registered per accelerator class with ``register_fused``; a
+``StagedPipeline`` runs its whole chain on the device through
+``staged_plan`` when every stage has a plan and every coupling a torch
+twin (``register_coupling``), and raises otherwise.
 
 A plan whose device output is not the final output (the 2-D DCT returns
 integer coefficients; its float64 inverse transform stays on the host,
@@ -39,22 +43,49 @@ host from the plan's ``simulate_batch`` output, as the JAX package does.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.acl import adders as _adders
 from ..core.acl.library import Library, library_fingerprint
 from ..device import resolve_device
 
 __all__ = [
     "FusedPlan", "register_fused", "register_coupling", "staged_plan",
-    "simulate_batch", "qor_batch", "build_engine",
+    "simulate_batch", "qor_batch", "build_engine", "stats",
 ]
 
 _M16 = (1 << 16) - 1
+
+_STATS: Dict[str, int] = {}
+_STATS_LOCK = threading.Lock()
+
+
+def _bump(key: str, n: int = 1) -> None:
+    name = f"repro_sim_fused_{key}_total"
+    with _STATS_LOCK:
+        _STATS[key] = _STATS.get(key, 0) + n
+        # registered once and then found: registering again would replace
+        # the counter (the JAX package's does, so its total reads the
+        # last call's n)
+        counter = obs.REGISTRY.get(name) or obs.REGISTRY.counter(
+            name, f"fused sim engine: {key}")
+    counter.inc(n)
+
+
+def stats() -> Dict[str, int]:
+    """Snapshot of the engine counters."""
+    with _STATS_LOCK:
+        out = dict(_STATS)
+    for k in ("fused_calls", "fused_qor_calls"):
+        out.setdefault(k, 0)
+    return out
+
 
 # ---------------------------------------------------------------------------
 # closed-form adder twins
@@ -406,9 +437,11 @@ def _run_plan(plan: FusedPlan, accel, genomes, library: Library, inputs,
     if per_genome_inputs and x.shape[0] != genes.shape[0]:
         raise ValueError(
             f"{x.shape[0]} per-genome input sets for {genes.shape[0]} genomes")
-    with torch.no_grad():
-        out = plan.stage_fn(genes, x, per_genome_inputs)
-    return plan.post(out, inputs, per_genome_inputs)
+    with obs.span("sim.fused", g=int(genes.shape[0]), sse=False), \
+            torch.no_grad():
+        raw = plan.stage_fn(genes, x, per_genome_inputs)
+    _bump("fused_calls")
+    return plan.post(raw, inputs, per_genome_inputs)
 
 
 def qor_batch(
@@ -443,7 +476,9 @@ def qor_batch(
     else:
         pk = float(peak)
     x = plan.prep(inputs, dev)
-    with torch.no_grad():
+    with obs.span("sim.fused", g=int(genes.shape[0]), sse=True), \
+            torch.no_grad():
         out = plan.stage_fn(genes, x, False)
-        sse = sse_batch(torch.from_numpy(ref).to(dev), out)
-    return psnr_from_sse(sse.cpu().numpy(), ref.size, pk)
+        sse = sse_batch(torch.from_numpy(ref).to(dev), out).cpu().numpy()
+    _bump("fused_qor_calls")
+    return psnr_from_sse(sse, ref.size, pk)

@@ -12,8 +12,8 @@ Every stage is timed; the result object carries everything the Fig. 5/7/8/9
 benchmarks need.
 
 The loop itself lives in ``core.strategies`` as an ask/tell state machine
-(``Campaign`` + pluggable ``SearchStrategy``); ``run_dse`` is its
-drive-to-completion wrapper.
+(``Campaign`` + pluggable ``SearchStrategy``); ``run_dse`` and
+``random_search`` are its drive-to-completion wrappers.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from .hw import H100_SXM, Hardware
 from .nsga2 import NSGA2Config, NSGA2Result
 from .pareto import non_dominated_mask
 
-__all__ = ["DSEConfig", "DSEResult", "run_dse",
+__all__ = ["DSEConfig", "DSEResult", "run_dse", "random_search",
            "default_labeler", "label_unique"]
 
 # A labeler maps a (n, g) genome batch to the ground-truth label dict of
@@ -51,22 +51,24 @@ def default_labeler(
     n_qor_samples: int = 4,
     qor_seed: int = synth.DEFAULT_QOR_SEED,
     cache: Optional[dict] = None,
+    synth_cache: Optional[synth.SynthCache] = None,
     device=None,
     hw: Hardware = H100_SXM,
 ):
     """The in-process labeler ``run_dse`` uses when none is injected; it
     labels on ``device`` (default ``"cuda"``) with the hardware cost
     model ``hw`` (default the H100's; ``hw.V5E`` gives the JAX package's
-    labels)."""
+    labels), through ``synth_cache`` (default the process-wide
+    ``synth.shared_synth_cache()``)."""
     dev = resolve_device(device)
-    synth_cache = {} if cache is None else cache
+    ctx_cache = {} if cache is None else cache
     qor_inputs = accel.sample_inputs(n_qor_samples, seed=qor_seed)
 
     def labeler(genomes: np.ndarray) -> Dict[str, np.ndarray]:
         return synth.label_variants(
             accel, genomes, library,
-            rank_genes=rank_genes, qor_inputs=qor_inputs, cache=synth_cache,
-            device=dev, hw=hw,
+            rank_genes=rank_genes, qor_inputs=qor_inputs, cache=ctx_cache,
+            synth_cache=synth_cache, device=dev, hw=hw,
         )
 
     return labeler
@@ -180,3 +182,44 @@ def run_dse(
         verbose=verbose,
     )
     return drive(campaign, labeler)
+
+
+def random_search(
+    accel: Accelerator,
+    library: Optional[Library] = None,
+    *,
+    n: int = 1000,
+    objectives: Tuple[str, ...] = ("qor", "energy"),
+    rank_genes: bool = False,
+    seed: int = 0,
+    labeler=None,
+    device=None,
+    hw: Hardware = H100_SXM,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Baseline for Figs. 8/9: label n random variants, return
+    (genomes, objectives, front_mask).
+
+    Drives a ``RandomStrategy`` through a ground-truth ``Campaign`` (no
+    surrogates, no final stage) — one ask covering the whole budget, so
+    the labeler sees one unique batch.  The default labeler is
+    ``run_dse``'s, on ``device`` (default ``"cuda"``) and ``hw``."""
+    from .strategies.campaign import Campaign, drive
+    from .strategies.random import RandomStrategy
+
+    dev = resolve_device(device)
+    library = library or default_library()
+    # same default labeler as run_dse (QoR inputs from DEFAULT_QOR_SEED),
+    # so injected-labeler and in-process baselines are apples-to-apples
+    if labeler is None:
+        labeler = default_labeler(accel, library, rank_genes=rank_genes,
+                                  device=dev, hw=hw)
+    cfg = DSEConfig(objectives=tuple(objectives), rank_genes=rank_genes,
+                    seed=seed)
+    campaign = Campaign(
+        accel, library, cfg,
+        strategy=lambda sizes, _cfg, init=None: RandomStrategy(
+            sizes, n_total=n, seed=seed),
+        ground_truth_explore=True,
+    )
+    genomes, obj, mask, _labels = drive(campaign, labeler)
+    return genomes, obj, mask

@@ -2,13 +2,13 @@
 
   A: exhaustive — every variant synthesized (no surrogate).  PCC = 1 by
      construction; time = |space| x t_synth.
-  B: per-AC features from *synthesis*, composed to variant features;
-     surrogate trained on synth-labeled sample (not in this port yet).
+  B: per-AC features from *synthesis* (Vivado -> one deployment run of
+     each circuit on the device), composed to variant features;
+     surrogate trained on synth-labeled sample.
   C: per-AC features from the *cheap* extractor (ABC analogue), composed.
   D: cheap per-AC features + cheap accelerator-level features (the
      paper's winner).
-  E: synth per-AC features + cheap accelerator-level features (not in
-     this port yet).
+  E: synth per-AC features + cheap accelerator-level features.
   F: cheap accelerator-level features only.
 
 ``build_extractor`` returns a vectorized genomes->X function plus its
@@ -31,7 +31,8 @@ if TYPE_CHECKING:  # avoid circular import
     from ...accel.base import Accelerator
 from ...core.acl.library import Library
 from ..surrogates import make, pcc
-from . import cheap
+from ..hw import H100_SXM, Hardware
+from . import cheap, synth
 
 __all__ = ["PIPELINES", "Extractor", "build_extractor", "evaluate_pipeline"]
 
@@ -54,15 +55,23 @@ class Extractor:
 
 
 def _ac_feature_tables(
-    accel: Accelerator, library: Library
+    accel: Accelerator, library: Library, mode: str, *, device=None,
+    hw: Hardware = H100_SXM,
 ) -> Dict[str, np.ndarray]:
-    """{kind: (n_circuits, d)} per-AC cheap feature tables."""
+    """{kind: (n_circuits, d)} per-AC feature tables, cheap or synth (one
+    deployment run of each circuit on ``device``, costed on ``hw``)."""
     kinds = sorted({s.kind for s in accel.slots})
-    return {
-        kind: np.stack([cheap.circuit_features_cheap(c)
-                        for c in library.kind(kind)])
-        for kind in kinds
-    }
+    out = {}
+    for kind in kinds:
+        rows = []
+        for c in library.kind(kind):
+            if mode == "cheap":
+                rows.append(cheap.circuit_features_cheap(c))
+            else:
+                rows.append(synth.circuit_features_synth(
+                    c, device=device, hw=hw)[:-1])  # drop wall
+        out[kind] = np.stack(rows)
+    return out
 
 
 def build_extractor(
@@ -71,20 +80,22 @@ def build_extractor(
     library: Library,
     *,
     rank_genes: bool = False,
+    device=None,
+    hw: Hardware = H100_SXM,
 ) -> Extractor:
+    """The pipeline's feature extractor; B and E run each circuit's
+    deployment on ``device`` (default ``"cuda"``) and cost it on
+    ``hw``."""
     pipeline = pipeline.upper()
     assert pipeline in PIPELINES
     t0 = time.perf_counter()
     ac_tables = None
     accel_level = pipeline in ("D", "E", "F")
     if pipeline in ("B", "E"):
-        raise NotImplementedError(
-            f"pipeline {pipeline} needs per-circuit synthesis features "
-            "(circuit_features_synth), which a later slice of the port "
-            "brings; pipelines A, C, D and F are supported"
-        )
-    if pipeline in ("C", "D"):
-        ac_tables = _ac_feature_tables(accel, library)
+        ac_tables = _ac_feature_tables(accel, library, "synth",
+                                       device=device, hw=hw)
+    elif pipeline in ("C", "D"):
+        ac_tables = _ac_feature_tables(accel, library, "cheap")
     setup = time.perf_counter() - t0
 
     if pipeline == "A":
@@ -134,8 +145,11 @@ def evaluate_pipeline(
     qor_model: str = "random_forest",
     rank_genes: bool = False,
     synth_time_per_variant: Optional[float] = None,
+    device=None,
+    hw: Hardware = H100_SXM,
 ) -> PipelineReport:
-    """One Fig. 5 bar: PCC + exploration-time for a pipeline."""
+    """One Fig. 5 bar: PCC + exploration-time for a pipeline (B and E
+    build their features on ``device`` and ``hw``)."""
     if pipeline == "A":
         tpv = synth_time_per_variant or float(
             np.mean(train_labels["synth_time"] + train_labels["sim_time"])
@@ -150,7 +164,8 @@ def evaluate_pipeline(
             explore_time_1m=tpv * 1e6,
         )
 
-    ext = build_extractor(pipeline, accel, library, rank_genes=rank_genes)
+    ext = build_extractor(pipeline, accel, library, rank_genes=rank_genes,
+                          device=device, hw=hw)
     Xtr = ext(train_genomes)
     Xte = ext(test_genomes)
 

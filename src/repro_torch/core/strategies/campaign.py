@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ... import obs
 from ..nsga2 import NSGA2Result
 from ..pareto import non_dominated_mask
 from ..surrogates import make as make_surrogate
@@ -192,9 +193,11 @@ class Campaign:
                 self._req = _unique_request("explore", genomes)
                 return self._req
             t0 = time.perf_counter()
-            obj = (self._evaluate(genomes) if len(genomes)
-                   else np.zeros((0, len(self.objectives))))
-            self.strategy.tell(genomes, obj)
+            with obs.span("campaign.round", stage="explore",
+                          strategy=self.strategy_name, n=int(len(genomes))):
+                obj = (self._evaluate(genomes) if len(genomes)
+                       else np.zeros((0, len(self.objectives))))
+                self.strategy.tell(genomes, obj)
             self.timings["explore"] = (
                 self.timings.get("explore", 0.0) + time.perf_counter() - t0
             )
@@ -213,34 +216,36 @@ class Campaign:
         with the request's unique genomes."""
         if req is not self._req:
             raise ValueError("deliver() got a request that is not pending")
-        full = {k: np.asarray(v)[req.inverse] for k, v in labels.items()}
-        # counted on delivery, not issue: a request outstanding at
-        # snapshot time is re-issued on resume and must not count twice
-        self.labels_requested += len(req.genomes)
-        self._req = None
-        if req.stage == "train":
-            self.timings["label"] = (
-                self.timings.get("label", 0.0)
-                + time.perf_counter() - req.issued_at
-            )
-            self.train_labels = full
-            self._fit_surrogates()
-        elif req.stage == "explore":
-            from ..dse import _objective_matrix
+        with obs.span("campaign.deliver", stage=req.stage,
+                      n=int(len(req.genomes))):
+            full = {k: np.asarray(v)[req.inverse] for k, v in labels.items()}
+            # counted on delivery, not issue: a request outstanding at
+            # snapshot time is re-issued on resume and must not count twice
+            self.labels_requested += len(req.genomes)
+            self._req = None
+            if req.stage == "train":
+                self.timings["label"] = (
+                    self.timings.get("label", 0.0)
+                    + time.perf_counter() - req.issued_at
+                )
+                self.train_labels = full
+                self._fit_surrogates()
+            elif req.stage == "explore":
+                from ..dse import _objective_matrix
 
-            self._gt_labels.append(full)
-            self.strategy.tell(
-                self.strategy.ask(),
-                _objective_matrix(full, self.objectives),
-            )
-            if self.strategy.done:
-                self._finish_explore()
-        elif req.stage == "final":
-            self.timings["final_eval"] = (
-                self.timings.get("final_eval", 0.0)
-                + time.perf_counter() - req.issued_at
-            )
-            self._finalize(full)
+                self._gt_labels.append(full)
+                self.strategy.tell(
+                    self.strategy.ask(),
+                    _objective_matrix(full, self.objectives),
+                )
+                if self.strategy.done:
+                    self._finish_explore()
+            elif req.stage == "final":
+                self.timings["final_eval"] = (
+                    self.timings.get("final_eval", 0.0)
+                    + time.perf_counter() - req.issued_at
+                )
+                self._finalize(full)
 
     # ------------------------------------------------------------------
     def _fit_surrogates(self) -> None:

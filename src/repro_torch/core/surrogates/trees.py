@@ -54,6 +54,12 @@ def _best_split(X, y, feat_idx, min_leaf):
         gain = base - sse[kbest]
         if np.isfinite(sse[kbest]) and gain > best[2]:
             thr = 0.5 * (xs[kbest] + xs[kbest + 1])
+            if thr >= xs[kbest + 1]:
+                # the midpoint of two adjacent floats can round up to the
+                # upper one, and ``X <= thr`` would then leave the right
+                # child empty (a NaN leaf in the JAX package's copy): keep
+                # the k-left split that was scored
+                thr = xs[kbest]
             best = (j, thr, gain)
     return best
 

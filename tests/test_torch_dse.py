@@ -96,12 +96,20 @@ from repro_torch.kernels import flash_attention, selective_scan
 from repro_torch.configs import get_config
 from repro_torch.models import reduced
 from repro_torch.launch.serve import serve_batch
+from repro_torch import faults, obs, segments
+from repro_torch.core.features.synth import JsonlSynthCache
+import os, tempfile
 import numpy as np
 acc = GaussianFilter()
 lib = repro_torch.core.acl.library.default_library()
 g = np.stack([acc.exact_genome(lib)] * 2)
 labels = default_labeler(acc, lib, n_qor_samples=1, device="cpu")(g)
 assert labels["qor"][0] == 100.0
+cache = JsonlSynthCache(os.path.join(tempfile.mkdtemp(), "synth.jsonl"))
+labels = default_labeler(acc, lib, n_qor_samples=1, synth_cache=cache,
+                         device="cpu")(g)
+assert labels["qor"][0] == 100.0 and cache.stats()["compiles"] == 1
+cache.close()
 for arch in ("falcon-mamba-7b", "granite-8b"):
     tokens, _ = serve_batch(reduced(get_config(arch)), batch=2, prompt_len=8,
                             gen=3, device="cpu")

@@ -272,13 +272,15 @@ def test_single_circuit_is_one_group():
 def test_label_records_unchanged_by_the_packed_route(monkeypatch):
     """``label_variants(device="cpu")`` gives the same records when
     synthesis runs the packed route as when it runs the per-group chain;
-    the chain is what synthesis ran before the packed route."""
+    the chain is what synthesis ran before the packed route.  Each call
+    gets a fresh synthesis cache, so that both really run."""
     accel = GaussianFilter()
     sizes = accel.gene_sizes(LIB)
     g = np.random.default_rng(11).integers(0, sizes[None, :],
                                            size=(24, len(sizes)))
     x = accel.sample_inputs(2, seed=synth.DEFAULT_QOR_SEED)
     packed = synth.label_variants(accel, g, LIB, qor_inputs=x, cache={},
+                                  synth_cache=synth.SynthCache(),
                                   device="cpu")
     runs = []
 
@@ -288,6 +290,7 @@ def test_label_records_unchanged_by_the_packed_route(monkeypatch):
 
     monkeypatch.setattr(am, "grouped_matmul", chain)
     chained = synth.label_variants(accel, g, LIB, qor_inputs=x, cache={},
+                                   synth_cache=synth.SynthCache(),
                                    device="cpu")
     assert runs and set(runs) == {9}
     for key in synth.LABEL_KEYS:

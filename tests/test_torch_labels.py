@@ -224,8 +224,24 @@ def test_pipeline_features_match_reference(pipeline):
 
 @pytest.mark.parametrize("pipeline", ["B", "E"])
 def test_synth_feature_pipelines_wait_for_a_later_slice(pipeline):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pipelines.build_extractor(pipeline, GaussianFilter(), LIB)
+    """Pipelines B and E (per-circuit synthesis features) now build: on
+    the CPU when asked, E with B's columns and the accelerator-level
+    columns that D adds to C; with no device on a machine without a GPU
+    they raise.  Their per-circuit features are held against the JAX
+    package's in ``tests/test_torch_paper_figs.py``."""
+    g = _genomes(8, seed=5)
+    acc = GaussianFilter()
+    X = pipelines.build_extractor(pipeline, acc, LIB, device="cpu",
+                                  hw=V5E)(g)
+    assert X.shape[0] == 8 and np.all(np.isfinite(X))
+    if pipeline == "E":
+        width = {p: pipelines.build_extractor(p, acc, LIB)(g).shape[1]
+                 for p in ("C", "D")}
+        b = pipelines.build_extractor("B", acc, LIB, device="cpu", hw=V5E)
+        assert X.shape[1] == b(g).shape[1] + width["D"] - width["C"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pipelines.build_extractor(pipeline, acc, LIB)
 
 
 if __name__ == "__main__":
