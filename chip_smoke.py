@@ -75,7 +75,25 @@ Phases, one JSON object per line on standard output:
    ``hevc_dct4x4`` run of the dse phase: the hypervolume by generation,
    the first generation at 95% of the final and the front size.  The
    claims are printed, not gated.
-8. ``serve_granite-8b``, ``serve_granite-8b_approx``,
+8. ``hier``    — the paper's hierarchical multi-stage search (§V) on
+   ``smoothed_dct`` (45 slots), each run on a fresh in-process campaign
+   service on the card (``CampaignManager(device="cuda")``: two eval and
+   two campaign threads, ``max_batch=1000``, a fresh ``SynthCache``):
+   a flat campaign over the joint genome at the paper's widths
+   (n_train=1000, pop_size=1000, n_parents=200, 4 QoR images), then
+   ``run_hierarchical``: one campaign a stage, run together, at the same
+   widths and n_train=500, fronts composed (``k_per_stage=50``) into at
+   most 200 candidates, which are re-labeled end to end.  Both run
+   ``FIGS_GENERATIONS`` generations with ``FIGS_HW_MODEL``.  Gates: two
+   stage campaigns in flight at once; the front's best QoR that of the
+   exact anchor (100); every front design equal to a CPU re-label;
+   rank_k launched ``DEPLOY_LAUNCHES`` times per run paid in each
+   context (the genomes whose label carries synthesis seconds), and the
+   runs the synthesis cache counted.  A line per run (walls, labels,
+   store and in-flight hits, batches and their sizes, runs paid,
+   launches, composition), then the label and hypervolume ratios on a
+   shared reference point, printed, not gated.
+9. ``serve_granite-8b``, ``serve_granite-8b_approx``,
    ``serve_falcon-mamba-7b`` — the LM serving path at full width and
    depth, one model at a time (freed before the next): weights drawn from
    the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
@@ -93,10 +111,10 @@ Phases, one JSON object per line on standard output:
    at rank 3.
 
 Every kernel's launch count is set to 0 just before each run of phases 4
-to 8 (each accelerator's labels, each dse, each cache batch, each figure
-run, each serve) and read just after; a kernel of the phase's main path
-(``MAIN_PATH``) that the phase did not launch, or did not launch once per
-layer for the serve phases, fails the run.  ``lut_matmul`` and
+to 9 (each accelerator's labels, each dse, each cache batch, each figure
+run, each hier run, each serve) and read just after; a kernel of the
+phase's main path (``MAIN_PATH``) that the phase did not launch, or did
+not launch once per layer for the serve phases, fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
 which the labels do not run; their rows in phase 3 hold them against
 their plain version.
@@ -209,6 +227,7 @@ MAIN_PATH = {
     "dse": ("population_lut", "rank_k"),
     "cache": ("population_lut", "rank_k"),
     "figs": ("population_lut", "rank_k"),
+    "hier": ("population_lut", "rank_k"),
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
@@ -223,7 +242,7 @@ DEPLOY_LAUNCHES = {
     "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
-          "serve")
+          "hier", "serve")
 # the figs phase: Fig. 5's 1000 training and 1000 test genomes; Figs.
 # 8/9's MCM rows and NSGA-II generations; the power surrogate of both
 # (the JAX package's default, bayesian_ridge, is singular on pipeline E's
@@ -233,6 +252,16 @@ FIG5_TRAIN = FIG5_TEST = 1000
 FIGS_ROWS = (0, 1, 2, 3)
 FIGS_GENERATIONS = 25
 FIGS_HW_MODEL = "ridge"
+# the hier phase on smoothed_dct: the flat campaign at the paper's widths;
+# each stage campaign at the same widths and half the training labels, so
+# that the stages' training labels sum to the flat run's; a front of
+# k_per_stage points a stage; the flat run's stage-3 budget (n_parents)
+# of composed candidates; FIGS_GENERATIONS and FIGS_HW_MODEL for both
+HIER_WIDTHS = dict(pop_size=1000, n_parents=200, n_qor_samples=4)
+HIER_FLAT_TRAIN = 1000
+HIER_STAGE_TRAIN = 500
+HIER_K_PER_STAGE = 50
+HIER_MAX_CANDIDATES = 200
 
 
 class SmokeFailure(RuntimeError):
@@ -1505,6 +1534,204 @@ def phase_figs(seed: int, hevc_result=None) -> dict:
     return out
 
 
+def _hier_manager():
+    """A fresh in-process campaign service on the card: two eval threads,
+    two campaign threads, a fresh ``SynthCache``, and ``max_batch=1000``
+    so a campaign's 1000-genome request reaches the gather whole."""
+    from repro_torch.core.features import synth
+    from repro_torch.service import CampaignManager
+
+    return CampaignManager(device="cuda", eval_workers=2, campaign_workers=2,
+                           max_batch=1000, synth_cache=synth.SynthCache())
+
+
+def _runs_paid(genomes, labels) -> int:
+    """Deployment runs paid among one context's ground-truth labels: the
+    genome that paid a run carries its wall time, riders and cache hits
+    0.0 (``synthesize_batch``)."""
+    import numpy as np
+
+    _, first = np.unique(genomes, axis=0, return_index=True)
+    return int(np.count_nonzero(np.asarray(labels["synth_time"])[first] > 0))
+
+
+def _hier_line(run: str, mgr, wall: float, launches: dict, paid: dict,
+               front_genomes, front_obj, exact_qor: float, lib) -> dict:
+    """Gates and line shared by both runs of the hier phase: kernels of
+    the main path launched, rank_k once per run paid per context
+    (``DEPLOY_LAUNCHES``) and the runs the synthesis cache counted, the
+    front finite with a design at the exact anchor's QoR, and the front
+    equal to a CPU re-label."""
+    import numpy as np
+
+    from repro_torch.accel import SmoothedDct
+
+    what = f"hier {run}"
+    for k in MAIN_PATH["hier"]:
+        check(launches[k] > 0, f"{what}: launched no {k} kernel")
+    stats = mgr.synth_cache.stats()
+    want = sum(DEPLOY_LAUNCHES[name] * n for name, n in paid.items())
+    check(launches["rank_k"] == want,
+          f"{what}: {launches['rank_k']} rank_k launches for runs paid "
+          f"{paid} (expected {want})")
+    check(sum(paid.values()) == stats["compiles"],
+          f"{what}: runs paid {paid} against {stats['compiles']} the "
+          "synthesis cache counted")
+    check(len(front_genomes) > 0 and np.all(np.isfinite(front_obj)),
+          f"{what}: front empty or not finite")
+    check(exact_qor == 100.0 and -front_obj[:, 0].min() == exact_qor,
+          f"{what}: the front's best QoR {-front_obj[:, 0].min()} is not "
+          f"the exact anchor's {exact_qor}")
+    _relabel_front(SmoothedDct(), lib, front_genomes, front_obj, what)
+    sched = mgr.scheduler.stats()
+    # the batch-size histogram, its cumulative buckets made per bucket
+    hist = mgr.scheduler.batch_size
+    cum = [int(c) for _, c in hist.samples()[:-2]]
+    sizes = {f"<={b:g}": c - p for b, c, p in
+             zip(hist.buckets + (float("inf"),), cum, [0] + cum[:-1])
+             if c > p}
+    return {"phase": "hier", "run": run, "wall_s": wall,
+            "labeled": sched["labeled"], "requests": sched["requests"],
+            "store_hits": sched["store_hits"],
+            "inflight_dedup_hits": sched["inflight_dedup_hits"],
+            "batches": sched["batches"],
+            "mean_batch_size": sched["mean_batch_size"],
+            "batch_sizes": sizes,
+            "coalesced_batches": sched["coalesced_batches"],
+            "runs_paid": paid, "synth_cache": stats,
+            "front_size": int(len(front_genomes)),
+            "front_qor_range": [float(-front_obj[:, 0].max()),
+                                float(-front_obj[:, 0].min())],
+            "launches": launches}
+
+
+def phase_hier(seed: int) -> dict:
+    """The paper's hierarchical search against a flat campaign on
+    ``smoothed_dct`` (module docstring, phase 8), each on a fresh
+    in-process campaign service on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.accel import SmoothedDct
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.core.pareto import hypervolume_2d
+    from repro_torch.hierarchy import HierarchicalConfig, run_hierarchical
+    from repro_torch.service import CampaignSpec
+
+    lib = default_library()
+    pipe = SmoothedDct()
+    exact = pipe.exact_genome(lib)
+    total: dict = {}
+    common = dict(HIER_WIDTHS, n_generations=FIGS_GENERATIONS,
+                  hw_model=FIGS_HW_MODEL, seed=seed)
+
+    # flat: one campaign over the 45-slot joint genome
+    mgr = _hier_manager()
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cid = mgr.submit(CampaignSpec(accel="smoothed_dct",
+                                      n_train=HIER_FLAT_TRAIN, **common))
+        state = mgr.wait(cid, timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check(state == "done",
+              f"hier flat: campaign {state}: {mgr.status(cid).get('error')}")
+        res = mgr.result(cid)
+        g_all, l_all = res.search.genomes, res.final_labels
+        hit = np.flatnonzero((g_all == exact).all(axis=1))
+        flat = _hier_line("flat", mgr, wall, launches,
+                          {pipe.name: _runs_paid(g_all, l_all)},
+                          res.front_genomes, res.front_objectives,
+                          float(l_all["qor"][hit[0]]), lib)
+        flat.update(n_train=HIER_FLAT_TRAIN, timings_s=res.timings,
+                    val_pcc=res.val_pcc)
+        flat_front = res.front_objectives
+    finally:
+        mgr.shutdown()
+    _add_launches(total, flat["launches"])
+    emit(flat)
+
+    # hierarchical: one concurrent campaign a stage, composition, then
+    # the composed candidates re-labeled end to end
+    mgr = _hier_manager()
+    try:
+        cfg = HierarchicalConfig(n_train=HIER_STAGE_TRAIN,
+                                 k_per_stage=HIER_K_PER_STAGE,
+                                 max_candidates=HIER_MAX_CANDIDATES,
+                                 **common)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        hres = run_hierarchical(pipe, lib, cfg, manager=mgr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check(hres.max_concurrent_stages >= 2,
+              f"hier: {hres.max_concurrent_stages} stage campaign(s) in "
+              "flight at once, expected 2")
+        paid, stage_timings = {}, []
+        for i, sc in enumerate(hres.stage_campaign_ids):
+            r = mgr.result(sc)
+            paid[f"{pipe.name}/stage{i}"] = _runs_paid(r.search.genomes,
+                                                       r.final_labels)
+            stage_timings.append(r.timings)
+        paid[pipe.name] = _runs_paid(hres.candidate_genomes,
+                                     hres.final_labels)
+        hit = np.flatnonzero((hres.candidate_genomes == exact).all(axis=1))
+        check(len(hit) == 1, "hier: the exact anchor is not a candidate")
+        hier = _hier_line("hierarchical", mgr, wall, launches, paid,
+                          hres.front_genomes, hres.front_objectives,
+                          float(hres.final_labels["qor"][hit[0]]), lib)
+        cs = hres.compose_stats
+        hier.update(
+            n_train_per_stage=HIER_STAGE_TRAIN,
+            k_per_stage=HIER_K_PER_STAGE,
+            max_candidates=HIER_MAX_CANDIDATES,
+            timings_s=hres.timings, stage_timings_s=stage_timings,
+            val_pcc=hres.val_pcc,
+            ground_truth_calls=hres.ground_truth_calls,
+            max_concurrent_stages=int(hres.max_concurrent_stages),
+            compose={"stage_front_sizes": cs.stage_sizes,
+                     "truncated_sizes": cs.truncated_sizes,
+                     "cross_product_size": cs.cross_product_size,
+                     "pairs_evaluated": cs.pairs_evaluated,
+                     "survivors": cs.survivors},
+            candidates=int(len(hres.candidate_genomes)),
+            exact_genome_on_front=bool(hres.front_mask[hit[0]]),
+            flat_space_size=hres.flat_space_size)
+        hier_front = hres.front_objectives
+    finally:
+        mgr.shutdown()
+    _add_launches(total, hier["launches"])
+    emit(hier)
+
+    # hypervolume of both verified fronts on one reference point (the
+    # JAX package's benchmarks/hierarchy.py)
+    both = np.concatenate([flat_front, hier_front])
+    ref = (both.max(axis=0) + 0.05 * np.abs(both.max(axis=0)
+                                            - both.min(axis=0)) + 1e-12)
+    hv_flat = hypervolume_2d(flat_front, ref)
+    hv_hier = hypervolume_2d(hier_front, ref)
+    out = {"phase": "hier", "launches": total,
+           "label_ratio": hier["ground_truth_calls"]["total"]
+           / max(flat["labeled"], 1),
+           "hv_ratio": hv_hier / max(hv_flat, 1e-300),
+           "hypervolume": {"flat": hv_flat, "hierarchical": hv_hier,
+                           "ref_point": ref.tolist()},
+           "wall_ratio": hier["wall_s"] / flat["wall_s"],
+           "reduced": {
+               "n_generations": {"paper": 1000,
+                                 "campaign_spec_default": 10,
+                                 "hierarchical_config_default": 6,
+                                 "run": FIGS_GENERATIONS},
+               "hw_model": {"repo_default": "bayesian_ridge",
+                            "run": FIGS_HW_MODEL}}}
+    emit(out)
+    return out
+
+
 def _device_time(prof, name: str = "") -> tuple:
     """(seconds, launches) of the CUDA kernels in a profiler window whose
     name contains ``name``; (None, None) if the trace holds no device
@@ -1850,6 +2077,8 @@ def main(argv=None) -> int:
                      for acc in (GaussianFilter(), HEVCDct())]
         if "figs" in phases:
             runs.append(phase_figs(args.seed, hevc_result))
+        if "hier" in phases:
+            runs.append(phase_hier(args.seed))
         if "serve" in phases:
             runs.append(phase_serve("granite-8b", args.seed))
             runs.append(phase_serve("granite-8b", args.seed, approx=True))

@@ -16,7 +16,9 @@ launch; ``call`` raises if that is not 0.  A launch never waits for the
 card.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  Threads launch at once
+(the campaign service labels from several), so every change to the
+counts is made under one lock.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "reset_launches", "build", "build_log", "call",
-           "BUILD_DIR", "SRC_DIR"]
+__all__ = ["KERNELS", "LAUNCHES", "reset_launches", "count_launch", "build",
+           "build_log", "call", "BUILD_DIR", "SRC_DIR"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -80,8 +82,16 @@ _FNS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (a read-modify-write: under the
+    lock, so launches from several threads are all counted)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -167,7 +177,7 @@ def call(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(
             f"repro_torch: {name} kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def build_log(name: str) -> str:

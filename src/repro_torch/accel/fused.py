@@ -276,19 +276,26 @@ class _Engine:
 # (library fingerprint, device) -> engine, so the twins are verified and
 # each LUT stack uploaded once per process rather than once per batch
 _ENGINES: Dict[tuple, _Engine] = {}
+# held while an engine is built: threads labeling one library at once
+# (the campaign service's eval workers) wait for the first build
+_ENGINES_LOCK = threading.Lock()
 
 
 def build_engine(library: Library, device=None) -> _Engine:
     """The verified engine for ``library`` on ``device``, built on first
-    use and cached (raises when an adder of the library has no verified
-    twin; nothing is cached then)."""
+    use, at most once per library and device, and cached (raises when an
+    adder of the library has no verified twin; nothing is cached
+    then)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (library_fingerprint(library), str(dev))
     eng = _ENGINES.get(key)
     if eng is None:
-        eng = _ENGINES[key] = _Engine(library, dev)
+        with _ENGINES_LOCK:
+            eng = _ENGINES.get(key)
+            if eng is None:
+                eng = _ENGINES[key] = _Engine(library, dev)
     return eng
 
 
