@@ -93,7 +93,28 @@ Phases, one JSON object per line on standard output:
    store and in-flight hits, batches and their sizes, runs paid,
    launches, composition), then the label and hypervolume ratios on a
    shared reference point, printed, not gated.
-9. ``serve_granite-8b``, ``serve_granite-8b_approx``,
+9. ``lm_dse``    — the paper's DSE applied to the LM (``accel/lm.py``):
+   ``run_dse`` on ``LMAccelerator(granite-8b, use_reduced=False)`` (36
+   layers, d 4096, GQA 32/8, d_ff 14336, vocab 49152, batch 2 x seq 32,
+   weights drawn from the seed on the card) at ``launch/dse_lm.py``'s
+   defaults (pipeline D, NSGA-II, n_train 48, pop 32, 12 parents, 12
+   generations, 2 QoR inputs; ``LM_DSE``), through a fresh
+   ``SynthCache``.  Gates: flash_attention_sm90 launched 36 times per
+   forward the accelerator counted; the deployment forwards equal the
+   runs paid; every label's energy equal to the host's
+   ``adjusted_compute`` bit for bit; the exact genome's QoR at the cap;
+   the front's QoR re-simulated with the plain attention within
+   max(``LM_QOR_TOL_DB``, 2 x the spread the JAX model code's own form
+   of attention shows on the same designs).  The front is written as a
+   ``FrontCatalog``; ``policy_from_front`` must decode its budget and
+   balanced tiers to the genomes ``select`` names; the accelerator is
+   freed and the budget tier served by ``serve_batch`` at full width
+   (batch 8, 1024-token prompts, 32 generated), its prefill logits on
+   the DSE's first input held against the accelerator's for that genome
+   within one bf16 rounding.  Then 8 random genomes of falcon-mamba-7b
+   at full width (64 layers) are labeled: selective_scan launched 64
+   times per forward.
+10. ``serve_granite-8b``, ``serve_granite-8b_approx``,
    ``serve_falcon-mamba-7b`` — the LM serving path at full width and
    depth, one model at a time (freed before the next): weights drawn from
    the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
@@ -111,8 +132,9 @@ Phases, one JSON object per line on standard output:
    at rank 3.
 
 Every kernel's launch count is set to 0 just before each run of phases 4
-to 9 (each accelerator's labels, each dse, each cache batch, each figure
-run, each hier run, each serve) and read just after; a kernel of the
+to 10 (each accelerator's labels, each dse, each cache batch, each figure
+run, each hier run, the LM's dse, its served tier and falcon's labels,
+each serve) and read just after; a kernel of the
 phase's main path (``MAIN_PATH``) that the phase did not launch, or did
 not launch once per layer for the serve phases, fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
@@ -200,6 +222,8 @@ FLASH_CASES = [
      "ragged, GQA 8/2: keys past 1000 zero-filled by TMA"),
     (2, 8, 2, 200, 264, 128, 64, "bfloat16",
      "ragged, causal mask shifted by q_offset 64"),
+    (2, 32, 8, 32, 32, 128, 0, "bfloat16",
+     "granite-8b LM DSE forward (b 2, s 32): one partial query tile"),
     (1, 4, 4, 256, 256, 64, 0, "bfloat16", "head dim 64"),
     (1, 8, 8, 512, 512, 256, 0, "bfloat16",
      "head dim 256 (CUDA-core route)"),
@@ -215,6 +239,7 @@ SCAN_CASES = [(1, 16, 8, 4, "JAX test shape"),
               (2, 64, 32, 8, "JAX test shape"),
               (1, 128, 16, 16, "JAX test shape"),
               (8, 1024, 8192, 16, "falcon-mamba-7b prefill width"),
+              (2, 32, 8192, 16, "falcon-mamba-7b LM DSE forward (b 2, s 32)"),
               (2, 1001, 4100, 16, "ragged"), (2, 999, 2050, 5, "ragged"),
               (1, 37, 13, 3, "ragged")]
 
@@ -228,6 +253,7 @@ MAIN_PATH = {
     "cache": ("population_lut", "rank_k"),
     "figs": ("population_lut", "rank_k"),
     "hier": ("population_lut", "rank_k"),
+    "lm_dse": ("flash_attention_sm90", "selective_scan"),
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
@@ -242,7 +268,7 @@ DEPLOY_LAUNCHES = {
     "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
-          "hier", "serve")
+          "hier", "lm_dse", "serve")
 # the figs phase: Fig. 5's 1000 training and 1000 test genomes; Figs.
 # 8/9's MCM rows and NSGA-II generations; the power surrogate of both
 # (the JAX package's default, bayesian_ridge, is singular on pipeline E's
@@ -2024,6 +2050,282 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     return out
 
 
+# the lm_dse phase: ``launch/dse_lm.py``'s defaults on granite-8b at full
+# width and depth, then 8 random genomes of falcon-mamba-7b
+LM_DSE = dict(n_train=48, pop_size=32, n_parents=12, n_generations=12,
+              n_qor_samples=2)
+LM_FALCON_GENOMES = 8
+# QoR of the LM's designs, in dB: the JAX package's and the port's QoR on
+# the same weights differ by up to 0.22 dB on the CPU at the reduced
+# configs (tests/test_torch_lm_dse.py holds them to 0.5).  At full depth
+# the front's QoR with the kernels is held against the plain attention's
+# within max(LM_QOR_TOL_DB, LOGITS_SPREAD_FACTOR x the spread that the
+# JAX model code's own form of attention shows against the plain one on
+# the same designs in the same run), as the serve phases' logits.
+LM_QOR_TOL_DB = 0.5
+
+
+def _lm_energy(acc, lib, genome, hw) -> float:
+    """A label's energy recomputed on the host from the genome:
+    ``adjusted_compute`` at the cost model's energy factors plus the
+    correction tables' bytes, as ``synth._finish_record`` makes it."""
+    from repro_torch.kernels.approx_matmul import from_circuit
+
+    circuits, ranks = acc.decode(genome, lib)
+    specs = [from_circuit(c, r) for c, r in zip(circuits, ranks)]
+    adj = acc.adjusted_compute(circuits, ranks, hw.energy_factor)
+    lut_bytes = sum(256.0 * 4 * 2 * sp.rank for sp in specs)
+    return adj * hw.e_flop + lut_bytes * hw.e_hbm_byte
+
+
+def _lm_front_qor(acc, lib, genomes, inputs, form: str):
+    """QoR of ``genomes`` with the attention run as ``form``: "plain"
+    (the plain version) or "chunked" (the JAX model code's form,
+    ``_chunked_form_attention``, under its own cache key)."""
+    import repro_torch.models.attention as attn_mod
+
+    if form == "plain":
+        return acc.qor_batch(genomes, lib, inputs, impl="plain")
+    orig = attn_mod.attn_op
+    attn_mod.attn_op = _chunked_form_attention
+    try:
+        return acc.qor_batch(genomes, lib, inputs, impl="chunked_form")
+    finally:
+        attn_mod.attn_op = orig
+
+
+def phase_lm_dse(seed: int) -> dict:
+    """The paper's DSE on granite-8b at full width and depth, the budget
+    tier of its front served, then falcon-mamba-7b's labels (module
+    docstring, phase 9); each model freed before the next."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.accel import LMAccelerator
+    from repro_torch.configs import get_config
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.core.dse import DSEConfig, default_labeler, run_dse
+    from repro_torch.core.features import synth
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.nsga2 import NSGA2Config
+    from repro_torch.core.qor import PSNR_CAP
+    from repro_torch.launch.serve import (
+        build_model, policy_from_front, serve_batch,
+    )
+    from repro_torch.serving import FrontCatalog
+    from repro_torch.train.serve import make_prefill_step
+
+    lib = default_library()
+    total: dict = {}
+    cfg = get_config("granite-8b")
+    acc = LMAccelerator(cfg, use_reduced=False, seed=seed, device="cuda")
+    w = LM_DSE
+    dcfg = DSEConfig(pipeline="D", strategy="nsga2", n_train=w["n_train"],
+                     n_qor_samples=w["n_qor_samples"], seed=seed,
+                     nsga=NSGA2Config(pop_size=w["pop_size"],
+                                      n_parents=w["n_parents"],
+                                      n_generations=w["n_generations"],
+                                      seed=seed))
+    scache = synth.SynthCache()
+    keep = synth.set_shared_synth_cache(scache)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_dse(acc, lib, dcfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        synth.set_shared_synth_cache(keep)
+    forwards = dict(acc.forwards)
+    n_fwd = sum(forwards.values())
+    stats = scache.stats()
+    _add_launches(total, launches)
+
+    layers = cfg.n_layers
+    check(launches["flash_attention_sm90"] == layers * n_fwd,
+          f"lm_dse: flash_attention_sm90 launched "
+          f"{launches['flash_attention_sm90']} times for {n_fwd} forwards of "
+          f"{layers} layers")
+    check(launches["selective_scan"] == 0 and launches["rank_k"] == 0,
+          f"lm_dse: granite launched {launches}")
+    check(forwards["deploy"] == stats["compiles"],
+          f"lm_dse: {forwards['deploy']} deploy forwards, "
+          f"{stats['compiles']} synthesis runs paid")
+    g_all, l_all = res.search.genomes, res.final_labels
+    front_g, front_o = res.front_genomes, res.front_objectives
+    check(len(front_g) > 0 and np.all(np.isfinite(front_o)),
+          "lm_dse: front empty or not finite")
+    for k in ("qor", "energy", "latency", "flops", "hbm_bytes"):
+        check(np.all(np.isfinite(l_all[k])), f"lm_dse: label {k} not finite")
+    # energy: bit for bit the host's adjusted_compute of each genome
+    for g, e in zip(g_all, l_all["energy"]):
+        check(_lm_energy(acc, lib, g, H100_SXM) == e,
+              f"lm_dse: energy of {g.tolist()} differs from the host's "
+              "adjusted_compute")
+    inputs = acc.sample_inputs(w["n_qor_samples"], seed=synth.DEFAULT_QOR_SEED)
+    exact = acc.exact_genome(lib)
+    exact_qor = float(acc.qor_batch(exact[None], lib, inputs)[0])
+    check(exact_qor == PSNR_CAP,
+          f"lm_dse: the exact genome's QoR is {exact_qor}, not {PSNR_CAP}")
+    # the front's QoR against the plain attention, and the spread of the
+    # JAX model code's form against the plain one on the same designs
+    t1 = time.perf_counter()
+    q_plain = _lm_front_qor(acc, lib, front_g, inputs, "plain")
+    q_chunk = _lm_front_qor(acc, lib, front_g, inputs, "chunked")
+    resim_s = time.perf_counter() - t1
+    q_kernel = -front_o[:, 0]
+    err = float(np.max(np.abs(q_kernel - q_plain)))
+    spread = float(np.max(np.abs(q_chunk - q_plain)))
+    tol = max(LM_QOR_TOL_DB, LOGITS_SPREAD_FACTOR * spread)
+    check(err <= tol, f"lm_dse: front QoR with the kernels differs from the "
+                      f"plain attention's by {err:.4g} dB (tolerance "
+                      f"{tol:.4g})")
+
+    # the front as a catalog; its tiers decoded by the serving CLI's path
+    cat = FrontCatalog.from_front(acc.name, front_g, front_o)
+    tiers, decoded = {}, {}
+    with tempfile.TemporaryDirectory(prefix="lm_front_") as tmp:
+        path = os.path.join(tmp, "front.json")
+        with open(path, "w") as f:
+            json.dump(cat.to_json(), f)
+        for tier in ("budget", "balanced"):
+            policy, sel = policy_from_front(cfg, path, tier)
+            want = cat.select(tier=tier)
+            check(sel.point.genome == want.point.genome
+                  and dict(policy.assignments) == dict(acc.policy_for_genome(
+                      want.point.genome_array()).assignments),
+                  f"lm_dse: tier {tier} decodes to another genome than "
+                  "FrontCatalog.select names")
+            decoded[tier] = (policy, sel)
+            tiers[tier] = {"genome": list(sel.point.genome),
+                           "labels": sel.point.labels,
+                           "policy": {k: list(v) for k, v in
+                                      policy.assignments.items()}}
+    budget_policy, budget_sel = decoded["budget"]
+    circuits, _ = acc.decode(budget_sel.point.genome_array(), lib)
+    acc_logits = torch.from_numpy(acc.simulate(circuits, inputs[:1])[0])
+    dse_out = {
+        "phase": "lm_dse", "arch": cfg.name, "n_layers": layers,
+        "d_model": cfg.d_model, "batch": acc.batch, "seq": acc.seq,
+        **w, "pipeline": "D", "strategy": "nsga2", "reduced": None,
+        "wall_s": wall, "timings_s": res.timings, "val_pcc": res.val_pcc,
+        "labels": int(len(np.unique(g_all, axis=0))),
+        "forwards": forwards, "synth_cache": stats,
+        "qor_s_per_forward": (float(l_all["sim_time"].sum())
+                              / max(forwards["qor"] + forwards["exact"], 1)),
+        "synth_s_per_run": (float(l_all["synth_time"].sum())
+                            / max(stats["compiles"], 1)),
+        "front_size": int(len(front_g)),
+        "front_qor_range": [float(q_kernel.min()), float(q_kernel.max())],
+        "front_qor_kernel_vs_plain_max_abs_db": err,
+        "front_qor_chunked_form_vs_plain_max_abs_db": spread,
+        "front_qor_tolerance_db": tol, "resim_s": resim_s,
+        "exact_qor": exact_qor, "tiers": tiers,
+        "max_memory_allocated": peak, "param_bytes": acc.model.param_bytes(),
+        "launches": launches,
+    }
+    emit(dse_out)
+    acc.release()
+    del acc
+    torch.cuda.empty_cache()
+
+    # the budget tier served at full width from the same seed
+    b, L, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    g = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (b, L), generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, policy=budget_policy, seed=seed, device="cuda")
+    timings: dict = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, tps = serve_batch(cfg, batch=b, prompt_len=L, gen=gen,
+                              policy=budget_policy, prompts=prompts,
+                              model=model, timings=timings)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    _add_launches(total, launches)
+    check(tuple(tokens.shape) == (b, L + gen)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab,
+          f"lm_dse: served tokens {tuple(tokens.shape)} out of range")
+    check(launches["flash_attention_sm90"] == layers,
+          f"lm_dse: the served request launched flash_attention_sm90 "
+          f"{launches['flash_attention_sm90']} times, not once a layer")
+    tok = torch.from_numpy(inputs[0]).cuda()
+    pre, _ = make_prefill_step(model)(tok, model.init_caches(*tok.shape))
+    full = model(tok).float().cpu()
+    pre = pre.float().cpu()
+    want = acc_logits[:, -1:]
+    serve_err = _max_err(pre, want)
+    _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL)(
+        pre, want, "lm_dse: served prefill logits against the accelerator's")
+    serve_out = {
+        "phase": "lm_dse_serve", "arch": cfg.name, "tier": "budget",
+        "genome": list(budget_sel.point.genome),
+        "policy": {k: list(v) for k, v in budget_policy.assignments.items()},
+        **SERVE, "prefill_s": timings["prefill_s"],
+        "decode_s": timings["decode_s"], "decode_tokens_per_s": tps,
+        "wall_s": serve_wall, "max_memory_allocated": serve_peak,
+        "param_bytes": model.param_bytes(),
+        "prefill_logits_vs_accelerator_max_abs": serve_err,
+        "full_forward_bit_equal_to_accelerator": bool(torch.equal(
+            full, acc_logits)),
+        "launches": launches,
+    }
+    emit(serve_out)
+    del model
+    torch.cuda.empty_cache()
+
+    # falcon-mamba-7b: labels of random genomes at full width and depth
+    fcfg = get_config("falcon-mamba-7b")
+    facc = LMAccelerator(fcfg, use_reduced=False, seed=seed, device="cuda")
+    fg = _random_genomes(facc, lib, LM_FALCON_GENOMES,
+                         np.random.default_rng(seed))
+    labeler = default_labeler(facc, lib, n_qor_samples=w["n_qor_samples"],
+                              synth_cache=synth.SynthCache(), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    flabels, fwall, flaunch = _label_once(labeler, fg)
+    fpeak = torch.cuda.max_memory_allocated()
+    _add_launches(total, flaunch)
+    ffwd = dict(facc.forwards)
+    _check_labels(flabels, len(fg), "lm_dse falcon-mamba-7b")
+    check(flabels["qor"][0] == PSNR_CAP,
+          "lm_dse falcon-mamba-7b: the exact genome's QoR is not the cap")
+    check(flaunch["selective_scan"] == fcfg.n_layers * sum(ffwd.values()),
+          f"lm_dse falcon-mamba-7b: selective_scan launched "
+          f"{flaunch['selective_scan']} times for {sum(ffwd.values())} "
+          f"forwards of {fcfg.n_layers} layers")
+    for g, e in zip(fg, flabels["energy"]):
+        check(_lm_energy(facc, lib, g, H100_SXM) == e,
+              "lm_dse falcon-mamba-7b: energy differs from the host's "
+              "adjusted_compute")
+    falcon_out = {
+        "phase": "lm_dse_falcon", "arch": fcfg.name,
+        "n_layers": fcfg.n_layers, "genomes": len(fg), "wall_s": fwall,
+        "forwards": ffwd, "qor": flabels["qor"].tolist(),
+        "energy": flabels["energy"].tolist(),
+        "sim_s": float(flabels["sim_time"].sum()),
+        "synth_s": float(flabels["synth_time"].sum()),
+        "max_memory_allocated": fpeak,
+        "param_bytes": facc.model.param_bytes(), "launches": flaunch,
+    }
+    emit(falcon_out)
+    facc.release()
+    del facc
+    torch.cuda.empty_cache()
+    out = {"phase": "lm_dse_total", "launches": total}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--generations", type=int, default=100,
@@ -2079,6 +2381,8 @@ def main(argv=None) -> int:
             runs.append(phase_figs(args.seed, hevc_result))
         if "hier" in phases:
             runs.append(phase_hier(args.seed))
+        if "lm_dse" in phases:
+            runs.append(phase_lm_dse(args.seed))
         if "serve" in phases:
             runs.append(phase_serve("granite-8b", args.seed))
             runs.append(phase_serve("granite-8b", args.seed, approx=True))

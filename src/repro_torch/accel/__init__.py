@@ -1,10 +1,12 @@
 from .base import RANK_CHOICES, Accelerator, Slot
 from .gaussian import GaussianFilter
 from .hevc_dct import HEVCDct, MCMAccelerator
+from .lm import LMAccelerator, proj_classes_for
 
 __all__ = [
     "Accelerator", "Slot", "RANK_CHOICES",
     "GaussianFilter", "HEVCDct", "MCMAccelerator", "SmoothedDct",
+    "LMAccelerator", "proj_classes_for",
 ]
 
 

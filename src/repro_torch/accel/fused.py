@@ -348,6 +348,13 @@ def register_fused(cls):
     return deco
 
 
+def register_unfused(cls) -> None:
+    """Pin an accelerator type to its own per-genome path (a workload
+    that is not table-driven, like the LM, whose QoR path is its own):
+    ``_plan_for`` finds no plan for it and its subclasses."""
+    _PLANS[cls] = None
+
+
 def register_coupling(name: str, fn: Callable) -> None:
     """Torch twin of a ``Coupling.sim`` map, by coupling name: a staged
     chain runs on the device only when every coupling has one."""
@@ -360,6 +367,8 @@ def _plan_for(accel, library: Library, device, *,
     raises, or gives None where ``required`` is False."""
     for cls in type(accel).__mro__:
         if cls in _PLANS:
+            if _PLANS[cls] is None:
+                break
             return _PLANS[cls](accel, library, build_engine(library, device))
     if required:
         raise NotImplementedError(

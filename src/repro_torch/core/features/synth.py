@@ -157,8 +157,9 @@ def _digest(tag: str, payload: object) -> str:
 
 def _identity_signature(accel, specs) -> tuple:
     """Exact per-slot circuit identity (the cache key: the cached graph
-    counts do not depend on the cost model)."""
-    return (accel.name,) + tuple(
+    counts do not depend on the cost model).  An accelerator whose graph
+    is not fixed by its name names it with ``deploy_identity``."""
+    return (getattr(accel, "deploy_identity", accel.name),) + tuple(
         (s.name, s.rank, s.trunc_bits) for s in specs
     )
 

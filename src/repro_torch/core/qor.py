@@ -4,7 +4,8 @@ The paper's QoR is average PSNR of the accelerator's output against the
 exact accelerator's output over a set of input samples (images for the
 Gaussian filter / HEVC DCT).  The per-genome SSE is taken on the device
 (``sse_batch``); the float64 PSNR finish stays on the host so its bits
-match the numpy path.
+match the numpy path.  For the LM retarget there are logits-PSNR and
+the cross-entropy delta.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["psnr", "psnr_batch", "psnr_from_mse", "psnr_from_sse",
-           "sse_batch", "PSNR_CAP"]
+           "sse_batch", "mean_psnr", "ce_delta", "PSNR_CAP"]
 
 # Identical outputs would give +inf PSNR; the paper's plots saturate around
 # this value, and a finite cap keeps regression targets well-conditioned.
@@ -81,3 +82,23 @@ def psnr_from_sse(sse: np.ndarray, count: int, peak: float) -> np.ndarray:
     outputs (see ``sse_batch``)."""
     mse = np.asarray(sse, dtype=np.float64) / float(count)
     return psnr_from_mse(mse, peak)
+
+
+def mean_psnr(refs, outs, peak: float | None = None) -> float:
+    """Average PSNR over a batch of samples (paper: 'average PSNR ... for a
+    set of input signal samples')."""
+    vals = [psnr(r, o, peak) for r, o in zip(refs, outs)]
+    return float(np.mean(vals))
+
+
+def ce_delta(logits_ref: np.ndarray, logits_out: np.ndarray, labels: np.ndarray) -> float:
+    """Cross-entropy degradation of approximate logits vs exact logits."""
+
+    def ce(logits):
+        logits = logits - logits.max(axis=-1, keepdims=True)
+        logz = np.log(np.exp(logits).sum(axis=-1))
+        n = labels.size
+        gold = logits.reshape(n, -1)[np.arange(n), labels.reshape(-1)]
+        return float(np.mean(logz.reshape(-1) - gold))
+
+    return ce(np.asarray(logits_out, np.float64)) - ce(np.asarray(logits_ref, np.float64))

@@ -6,8 +6,12 @@
 Weights are random, drawn from ``--seed``.  Without ``--device`` it runs
 on the GPU and raises on a machine without one.  ``--approx`` serves the
 FFN projections (``ffn_in``/``ffn_out``) on one circuit of the library.
-Drawing the policy from a stored Pareto front (the JAX package's
-``--front``) is not ported yet.
+
+The approximate-serving path can draw its policy from a stored Pareto
+front instead: ``--front front.json --tier budget`` loads the front (a
+``FrontCatalog.to_json`` file, or the JAX package's ``GET /front``
+payload shape), resolves the tier to a genome, and decodes it to the
+``ApproxPolicy`` the model is built with.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..models import ApproxPolicy, reduced
 from ..models.transformer import Transformer
 from ..train.serve import Generator
 
-__all__ = ["build_model", "serve_batch", "main"]
+__all__ = ["build_model", "serve_batch", "policy_from_front", "main"]
 
 
 def build_model(cfg, *, policy: Optional[ApproxPolicy] = None, seed: int = 0,
@@ -81,6 +85,26 @@ def serve_batch(
     return tokens, tps
 
 
+def policy_from_front(cfg, front_path: str, tier: str = "balanced"):
+    """(policy, selection) for ``tier`` of the stored front at
+    ``front_path``: the CLI's bridge from a DSE campaign's output to a
+    runnable serving configuration.  The ``LMAccelerator`` built here
+    only decodes the genome; it draws no weights."""
+    from ..accel.lm import LMAccelerator
+    from ..serving import FrontCatalog
+
+    cat = FrontCatalog.from_file(front_path)
+    expect = f"lm:{cfg.name}"
+    if cat.accel != expect:
+        print(f"[serve] WARNING: front is for {cat.accel!r}, "
+              f"serving {expect!r}")
+    sel = cat.select(tier=tier)
+    accel = LMAccelerator(cfg, use_reduced=False)
+    policy = accel.policy_for_genome(
+        sel.point.genome_array(), rank_genes=cat.rank_genes)
+    return policy, sel
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="falcon-mamba-7b")
@@ -90,6 +114,12 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--approx", default=None,
                     help="hand-picked circuit for ffn_in/ffn_out")
+    ap.add_argument("--front", default=None,
+                    help="stored front JSON (FrontCatalog.to_json or the "
+                         "GET /front shape); the policy comes from its "
+                         "--tier operating point")
+    ap.add_argument("--tier", default="balanced",
+                    choices=("exact", "balanced", "budget"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -99,7 +129,15 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     policy = None
-    if args.approx:
+    if args.front and args.approx:
+        ap.error("--front and --approx are mutually exclusive")
+    if args.front:
+        policy, sel = policy_from_front(cfg, args.front, args.tier)
+        labels = " ".join(
+            f"{k}={v:.3g}" for k, v in sel.point.labels.items())
+        print(f"[serve] tier={args.tier} genome={list(sel.point.genome)} "
+              f"({labels})")
+    elif args.approx:
         policy = ApproxPolicy({
             "ffn_in": (args.approx, None), "ffn_out": (args.approx, None),
         })

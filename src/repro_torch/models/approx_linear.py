@@ -15,7 +15,10 @@ PyTorch too.
 Weights are stored in the dtype their route needs (``weight_dtype``):
 bf16 for the exact route, whose every use casts to bf16 first (a
 one-time cast gives the same bits), float32 where a policy quantizes
-them.
+them.  A model that serves more than one policy (``accel.lm``) stores
+every projection float32 (``proj_dtype``), as the JAX package keeps its
+one float32 parameter tree: the exact route then casts at use, which
+gives the bits of bf16 storage.
 """
 
 from __future__ import annotations
@@ -74,6 +77,10 @@ class ApproxPolicy:
     def spec(self, cls: str):
         return self._specs.get(cls)
 
+    @staticmethod
+    def exact() -> "ApproxPolicy":
+        return ApproxPolicy({})
+
     def factors(self, cls: str, device: torch.device):
         """(U, V) of ``cls``'s spec as float32 tensors on ``device``."""
         key = (cls, str(device))
@@ -86,19 +93,25 @@ class ApproxPolicy:
         return uv
 
 
-def weight_dtype(cls: str, policy: Optional[ApproxPolicy]) -> torch.dtype:
-    """Storage dtype of a projection weight of class ``cls``."""
+def weight_dtype(cls: str, policy: Optional[ApproxPolicy],
+                 proj_dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """Storage dtype of a projection weight of class ``cls``:
+    ``proj_dtype`` where given, else by the route ``policy`` gives it."""
+    if proj_dtype is not None:
+        return proj_dtype
     if policy is not None and policy.spec(cls) is not None:
         return torch.float32
     return torch.bfloat16
 
 
 def param_dtypes(specs: Mapping[str, object], classes: Mapping[str, str],
-                 policy: Optional[ApproxPolicy]) -> Dict[str, torch.dtype]:
-    """Storage dtype of each parameter: projections by their route,
+                 policy: Optional[ApproxPolicy],
+                 proj_dtype: Optional[torch.dtype] = None,
+                 ) -> Dict[str, torch.dtype]:
+    """Storage dtype of each parameter: projections by ``weight_dtype``,
     everything else float32."""
-    return {name: (weight_dtype(classes[name], policy) if name in classes
-                   else torch.float32) for name in specs}
+    return {name: (weight_dtype(classes[name], policy, proj_dtype)
+                   if name in classes else torch.float32) for name in specs}
 
 
 def _trunc(q: torch.Tensor, t: int) -> torch.Tensor:

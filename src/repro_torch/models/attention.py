@@ -70,9 +70,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class Attention(ParamModule):
     def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
-                 device):
+                 device, proj_dtype: Optional[torch.dtype] = None):
         specs = attn_param_specs(cfg)
-        super().__init__(specs, param_dtypes(specs, _CLASSES, policy), device)
+        super().__init__(specs, param_dtypes(specs, _CLASSES, policy,
+                                             proj_dtype), device)
         self.cfg = cfg
         self.policy = policy
 
@@ -84,13 +85,16 @@ class Attention(ParamModule):
         cache: Optional[Dict[str, torch.Tensor]] = None,
         pos: Optional[int] = None,         # decode position
         impl: str = "kernel",
+        policy: Optional[ApproxPolicy] = None,
     ) -> torch.Tensor:
         """Prefill (``pos`` None): causal attention over the sequence
         through the flash kernel; with a cache, this sequence's k/v are
         written to its first positions.  Decode (``pos`` given, s == 1):
         k/v written at ``pos`` and attention over the cache.  The cache is
-        updated in place."""
-        cfg, policy = self.cfg, self.policy
+        updated in place.  ``policy``, where given, replaces the one the
+        layer was built with for this call."""
+        cfg = self.cfg
+        policy = self.policy if policy is None else policy
         s = x.shape[1]
         h = rms_norm(x, self.norm, cfg.rms_eps)
         q = _split_heads(linear(h, self.wq, "qkv", policy), cfg.n_heads)

@@ -28,14 +28,17 @@ def dense_mlp_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 class DenseMLP(ParamModule):
     def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
-                 device):
+                 device, proj_dtype: Optional[torch.dtype] = None):
         specs = dense_mlp_param_specs(cfg)
-        super().__init__(specs, param_dtypes(specs, _CLASSES, policy), device)
+        super().__init__(specs, param_dtypes(specs, _CLASSES, policy,
+                                             proj_dtype), device)
         self.cfg = cfg
         self.policy = policy
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, policy = self.cfg, self.policy
+    def forward(self, x: torch.Tensor, *,
+                policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
+        cfg = self.cfg
+        policy = self.policy if policy is None else policy
         h = rms_norm(x, self.norm, cfg.rms_eps)
         up = linear(h, self.wi, "ffn_in", policy)
         gate = act_fn(cfg.mlp_act)(linear(h, self.wg, "ffn_in", policy))

@@ -62,9 +62,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 class Mamba(ParamModule):
     def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
-                 device):
+                 device, proj_dtype: Optional[torch.dtype] = None):
         specs = mamba_param_specs(cfg)
-        super().__init__(specs, param_dtypes(specs, _CLASSES, policy), device)
+        super().__init__(specs, param_dtypes(specs, _CLASSES, policy,
+                                             proj_dtype), device)
         self.cfg = cfg
         self.policy = policy
 
@@ -75,12 +76,15 @@ class Mamba(ParamModule):
         cache: Optional[Dict[str, torch.Tensor]] = None,
         decode: bool = False,
         impl: str = "kernel",
+        policy: Optional[ApproxPolicy] = None,
     ) -> torch.Tensor:
         """cache: {"conv": (b, k-1, di), "ssm": (b, di, n)} float32,
         updated in place.  Modes: cache None -> plain forward; cache +
         decode False -> prefill (scan kernel, post-prompt state kept);
-        cache + decode True -> one-step recurrence (s == 1)."""
-        cfg, policy = self.cfg, self.policy
+        cache + decode True -> one-step recurrence (s == 1).  ``policy``,
+        where given, replaces the one the layer was built with."""
+        cfg = self.cfg
+        policy = self.policy if policy is None else policy
         n = cfg.ssm_state
         dtr = cfg.resolved_dt_rank
         h = rms_norm(x, self.norm, cfg.rms_eps)

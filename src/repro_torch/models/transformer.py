@@ -5,8 +5,13 @@ decode and cache allocation.
 The JAX package scans stacked super-blocks; here the stack is a flat
 ``nn.ModuleList`` of ``n_layers`` layers, super-block-major (layer
 ``sb * len(block_pattern) + i`` is position ``i`` of super-block ``sb``).
-Weights are stored in the dtype their use needs (``approx_linear``), so
-the policy a model serves under is fixed when it is built.
+Weights are stored in the dtype their use needs (``approx_linear``):
+the policy a model is built with is its default.  ``forward`` takes a
+``policy`` for one call, as the JAX package's forward does; a model
+that serves several policies from one set of weights is built with
+``proj_dtype=torch.float32`` (``accel.lm``).  The LM head is never
+approximated: ``logits`` runs it exact under every policy, as the JAX
+package's ``_logits`` does.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ class Layer(nn.Module):
     an optional dense MLP, each a residual branch."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind,
-                 policy: Optional[ApproxPolicy], device):
+                 policy: Optional[ApproxPolicy], device,
+                 proj_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kind.cross_attn:
             raise NotImplementedError(
@@ -43,31 +49,37 @@ class Layer(nn.Module):
             raise NotImplementedError("the MoE layer is not ported yet")
         self.kind = kind
         if kind.mixer == "attn":
-            self.attn = Attention(cfg, policy, device)
+            self.attn = Attention(cfg, policy, device, proj_dtype)
         elif kind.mixer == "mamba":
-            self.mamba = Mamba(cfg, policy, device)
+            self.mamba = Mamba(cfg, policy, device, proj_dtype)
         else:
             raise ValueError(f"unknown mixer {kind.mixer!r}")
-        self.mlp = DenseMLP(cfg, policy, device) if kind.mlp == "dense" else None
+        self.mlp = (DenseMLP(cfg, policy, device, proj_dtype)
+                    if kind.mlp == "dense" else None)
 
-    def forward(self, x, inv_freq, *, cache=None, pos=None, impl="kernel"):
+    def forward(self, x, inv_freq, *, cache=None, pos=None, impl="kernel",
+                policy=None):
         if self.kind.mixer == "attn":
-            x = x + self.attn(x, inv_freq, cache=cache, pos=pos, impl=impl)
+            x = x + self.attn(x, inv_freq, cache=cache, pos=pos, impl=impl,
+                              policy=policy)
         else:
             x = x + self.mamba(x, cache=cache, decode=pos is not None,
-                               impl=impl)
+                               impl=impl, policy=policy)
         if self.mlp is not None:
-            x = x + self.mlp(x)
+            x = x + self.mlp(x, policy=policy)
         return x
 
 
 class Transformer(nn.Module):
     """A decoder-only LM of a ``ModelConfig``.  Parameters are allocated
     uninitialised on ``device``; seed them with ``init_weights(seed)`` or
-    load a ``state_dict`` (``convert.lm_params_from_numpy``)."""
+    load a ``state_dict`` (``convert.lm_params_from_numpy``).  Projection
+    weights are stored as ``policy`` needs them, or all in ``proj_dtype``
+    where given."""
 
     def __init__(self, cfg: ModelConfig, *,
-                 policy: Optional[ApproxPolicy] = None, device=None):
+                 policy: Optional[ApproxPolicy] = None, device=None,
+                 proj_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
         if cfg.is_encoder_decoder or cfg.frontend != "none":
@@ -82,7 +94,7 @@ class Transformer(nn.Module):
             torch.empty((v, d), dtype=torch.bfloat16, device=dev),
             requires_grad=False)
         self.layers = nn.ModuleList(
-            Layer(cfg, kind, policy, dev)
+            Layer(cfg, kind, policy, dev, proj_dtype)
             for _ in range(cfg.n_superblocks) for kind in cfg.block_pattern)
         self.final_norm = nn.Parameter(
             torch.empty((d,), dtype=torch.float32, device=dev),
@@ -138,12 +150,12 @@ class Transformer(nn.Module):
         return x
 
     def run_layers(self, x: torch.Tensor, *, caches: Optional[Caches] = None,
-                   pos: Optional[int] = None,
-                   impl: str = "kernel") -> torch.Tensor:
+                   pos: Optional[int] = None, impl: str = "kernel",
+                   policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
         for j, layer in enumerate(self.layers):
             x = layer(x, self.inv_freq,
                       cache=caches[j] if caches is not None else None,
-                      pos=pos, impl=impl)
+                      pos=pos, impl=impl, policy=policy)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,11 +166,14 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *,
                 caches: Optional[Caches] = None,
-                impl: str = "kernel") -> torch.Tensor:
+                impl: str = "kernel",
+                policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
         """Teacher-forcing / prefill forward: (b, s, padded_vocab) bf16
-        logits.  With ``caches``, they are filled with this sequence."""
+        logits.  With ``caches``, they are filled with this sequence.
+        ``policy``, where given, replaces the built one for this call
+        (``ApproxPolicy.exact()`` runs every projection exact)."""
         x = self.run_layers(self.embed_tokens(tokens), caches=caches,
-                            impl=impl)
+                            impl=impl, policy=policy)
         return self.logits(x)
 
     @torch.no_grad()

@@ -27,11 +27,11 @@ Warm-surrogate modes (``CampaignSpec.warm_surrogates``):
   * ``"off"`` — always fit fresh.
 
 The port's copy of the JAX package's manager.  It takes ``device`` and
-``hw`` and hands both to every ``EvalContext`` it builds, so its
-campaigns label on that device with that cost model.  What the port
-does not carry yet raises ``ValueError`` naming its ROADMAP item, never
-falls back: the LM accelerators (``lm:<arch>``, §1 item 2), the process
-and fleet backends and the serving hub (§1 item 4).
+``hw`` and hands both to every ``EvalContext`` it builds (and the
+device to every ``lm:<arch>`` accelerator), so its campaigns label on
+that device with that cost model.  What the port does not carry yet
+raises ``ValueError`` naming its ROADMAP item, never falls back: the
+process and fleet backends and the serving hub (§1 item 4).
 """
 
 from __future__ import annotations
@@ -88,19 +88,23 @@ def unregister_accelerator(name: str) -> bool:
     return _REGISTRY.pop(name, None) is not None
 
 
-def make_accelerator(name: str, *, builtin_only: bool = False):
+def make_accelerator(name: str, *, builtin_only: bool = False,
+                     device=None):
     """Accelerator factory for service requests.
 
     ``mcm1``..``mcm4`` (HEVC DCT rows), ``hevc_dct4x4``, ``gaussian3x3``,
     ``smoothed_dct`` (the staged Gaussian->DCT pipeline),
     ``<pipeline>/stage<i>`` (one stage of a staged pipeline, QoR in situ)
-    and ``lm:<arch>`` (not ported yet: raises).  Names registered via
-    ``register_accelerator`` take precedence unless ``builtin_only``."""
+    and ``lm:<arch>`` (the reduced config of a ported arch, its model on
+    ``device``; the image accelerators take the device per call).  Names
+    registered via ``register_accelerator`` take precedence unless
+    ``builtin_only``."""
     if not builtin_only and name in _REGISTRY:
         return _REGISTRY[name]()
     if "/stage" in name:
         base, _, idx = name.rpartition("/stage")
-        pipe = make_accelerator(base, builtin_only=builtin_only)
+        pipe = make_accelerator(base, builtin_only=builtin_only,
+                                device=device)
         if not hasattr(pipe, "stage_views"):
             raise ValueError(f"{base!r} is not a staged pipeline")
         views = pipe.stage_views()
@@ -129,10 +133,15 @@ def make_accelerator(name: str, *, builtin_only: bool = False):
 
         return SmoothedDct()
     if name.startswith("lm:"):
-        raise ValueError(
-            f"accelerator {name!r}: the LM accelerator is not ported yet "
-            f"(ROADMAP.md §1 item 2: accel/lm.py)"
-        )
+        from ..accel.lm import LMAccelerator
+        from ..configs import get_config
+
+        try:
+            config = get_config(name[3:])
+        except KeyError as exc:
+            # ValueError is the factory's contract (-> HTTP 400)
+            raise ValueError(f"unknown accelerator {name!r}: {exc}") from exc
+        return LMAccelerator(config, device=device)
     raise ValueError(f"unknown accelerator {name!r}")
 
 
@@ -582,7 +591,7 @@ class CampaignManager:
         from ..core.strategies.campaign import Campaign as DseCampaign
 
         spec = c.spec
-        accel = make_accelerator(spec.accel)
+        accel = make_accelerator(spec.accel, device=self.device)
         library = default_library()
         c.ctx = EvalContext(
             accel, library,

@@ -23,7 +23,9 @@ Two implementations of the small ``LabelStore`` interface:
 
 The port's copy of the JAX package's store.  ``EvalContext`` carries
 two more fields: ``device`` (where ground truth runs; machinery, out of
-the fingerprint, since labels are bit-identical across devices) and
+the fingerprint, since the image accelerators' labels are bit-identical
+across devices; the LM's are float and differ, so ``LMAccelerator``
+carries the device kind in its own ``label_fingerprint``) and
 ``hw``, the cost model of the hardware labels (semantics: every model
 but ``V5E`` adds ``hw=<model>`` to the fingerprint, so an H100-costed
 label never answers a v5e context or the reverse, and under ``V5E`` the

@@ -98,6 +98,11 @@ from repro_torch.models import reduced
 from repro_torch.launch.serve import serve_batch
 from repro_torch import faults, obs, segments
 from repro_torch.core.features.synth import JsonlSynthCache
+from repro_torch.accel import LMAccelerator
+from repro_torch.launch import dse_lm
+from repro_torch.launch.serve import policy_from_front
+from repro_torch.serving import FrontCatalog
+from repro_torch.service import make_accelerator
 import os, tempfile
 import numpy as np
 acc = GaussianFilter()
@@ -114,6 +119,11 @@ for arch in ("falcon-mamba-7b", "granite-8b"):
     tokens, _ = serve_batch(reduced(get_config(arch)), batch=2, prompt_len=8,
                             gen=3, device="cpu")
     assert tuple(tokens.shape) == (2, 11)
+    lm = make_accelerator("lm:" + arch, device="cpu")
+    g = np.stack([lm.exact_genome(lib)] * 2)
+    g[1, 0] = 1
+    labels = default_labeler(lm, lib, n_qor_samples=1, device="cpu")(g)
+    assert labels["qor"][0] == 100.0 and labels["qor"][1] < 100.0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LEAKED", bad)
@@ -163,6 +173,10 @@ def _entry_points():
     x = acc.sample_inputs(1)
     dct = HEVCDct()
     g_dct = dct.exact_genome(LIB)[None]
+    from repro_torch.accel import LMAccelerator
+
+    lm_acc = LMAccelerator(get_config("granite-8b"))
+    g_lm = lm_acc.exact_genome(LIB)[None]
     return {
         "default_labeler": lambda: dse.default_labeler(acc, LIB),
         "label_variants": lambda: synth.label_variants(acc, g, LIB,
@@ -175,13 +189,18 @@ def _entry_points():
             **SMALL, nsga=NSGA2Config(**SMALL_NSGA))),
         "serve_batch": lambda: serve_batch(lm, batch=1, prompt_len=4, gen=2),
         "Generator": lambda: Generator(Transformer(lm)),
+        "lm_qor_batch": lambda: lm_acc.qor_batch(
+            g_lm, LIB, lm_acc.sample_inputs(1)),
+        "lm_label_variants": lambda: synth.label_variants(
+            lm_acc, g_lm, LIB, qor_inputs=lm_acc.sample_inputs(1)),
     }
 
 
 @pytest.mark.parametrize("name", ["default_labeler", "label_variants",
                                   "qor_batch", "simulate_batch", "run_dse",
                                   "serve_batch", "Generator",
-                                  "hevc_qor_batch", "hevc_simulate_batch"])
+                                  "hevc_qor_batch", "hevc_simulate_batch",
+                                  "lm_qor_batch", "lm_label_variants"])
 def test_entry_point_without_device_raises_without_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

@@ -12,7 +12,8 @@ CPU, against the JAX package's:
   cases);
 * two concurrent campaigns share labels and give ``run_dse``'s front; a
   warm store pays no ground truth;
-* each backend, accelerator and tier the port does not carry yet raises
+* ``lm:<arch>`` campaigns run on the manager's device;
+* each backend and tier the port does not carry yet raises
   ``ValueError`` naming its ROADMAP item.
 
 Every genome is drawn from a numpy seed."""
@@ -31,7 +32,10 @@ from repro.core.acl.library import default_library as ref_library
 from repro.service import EvalContext as RefEvalContext
 from repro.service import EvalScheduler as RefEvalScheduler
 from repro.service import JsonlLabelStore as RefJsonlLabelStore
-from repro_torch.accel import GaussianFilter, HEVCDct, MCMAccelerator
+from repro_torch.accel import (
+    GaussianFilter, HEVCDct, LMAccelerator, MCMAccelerator,
+)
+from repro_torch.configs import get_config
 from repro_torch.accel.smoothed_dct import SmoothedDct
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.dse import run_dse
@@ -348,10 +352,39 @@ def test_unknown_backend_raises():
 
 
 def test_lm_accelerator_raises():
-    with pytest.raises(ValueError, match="item 2"):
-        make_accelerator("lm:granite-8b")
-    with pytest.raises(ValueError, match="item 2"):
-        CampaignSpec(accel="lm:granite-8b", **SMALL).validate()
+    """``lm:<arch>`` resolves to the port's LMAccelerator (reduced, its
+    model on the factory's device); an arch the port does not build
+    still raises ``ValueError``, the factory's contract."""
+    acc = make_accelerator("lm:granite-8b", device="cpu")
+    assert isinstance(acc, LMAccelerator)
+    assert acc.name == "lm:granite-8b" and acc.cfg.n_layers == 2
+    assert acc.device.type == "cpu"
+    CampaignSpec(accel="lm:granite-8b", **SMALL).validate()
+    with pytest.raises(ValueError, match="not ported yet"):
+        make_accelerator("lm:jamba-1.5-large-398b")
+    with pytest.raises(ValueError, match="unknown accelerator"):
+        CampaignSpec(accel="lm:no-such-arch", **SMALL).validate()
+
+
+def test_lm_campaign_on_the_manager():
+    """An ``lm:`` campaign on the thread backend labels on the manager's
+    device with its cost model, and its front is ``run_dse``'s."""
+    spec = CampaignSpec(accel="lm:granite-8b", **SMALL)
+    ref = run_dse(LMAccelerator(get_config("granite-8b"), device="cpu"),
+                  LIB, spec.dse_config(), device="cpu")
+    mgr = CampaignManager(eval_workers=2, campaign_workers=1, device="cpu")
+    try:
+        cid = mgr.submit(spec)
+        assert mgr.wait(cid, timeout=600) == "done", mgr.status(cid)
+        ctx = mgr._get(cid).ctx
+        assert ctx.accel.device.type == "cpu" and ctx.hw is H100_SXM
+        assert "'device': 'cpu'" in ctx.accel.label_fingerprint()
+        res = mgr.result(cid)
+        assert np.array_equal(res.front_genomes, ref.front_genomes)
+        assert res.front_objectives.tobytes() == ref.front_objectives.tobytes()
+        assert (-res.front_objectives[:, 0]).max() == 100.0
+    finally:
+        mgr.shutdown()
 
 
 def test_serving_tier_raises():
