@@ -37,7 +37,9 @@ Phases, one JSON object per line on standard output:
    (``LUT_CASES``: ragged edges, k = 33000 at the int32 edge, n = 1, a
    table wider than 16 bits, conflict-free operands, both sides of the
    route crossover), and a ``kernel_lut_crossover`` line times both
-   routes on the cubes of ``LUT_SWEEP``.
+   routes on the cubes of ``LUT_SWEEP``.  A ``kernel_rank_k_fresh_process``
+   line runs rank_k as the first launch of a new process at a shared-
+   memory size that needs the launch to raise the block's limit itself.
 4. ``labels``  — one line per accelerator: ``default_labeler(acc, lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes of
    ``gaussian3x3`` (then a second batch of 1000), ``mcm1``…``mcm4``,
@@ -130,11 +132,45 @@ Phases, one JSON object per line on standard output:
    share and the decode's launches and idle share.  The ``_approx`` phase
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
    at rank 3.
+11. ``service`` — the campaign service's HTTP front end
+   (``service/api.py``) on a free local port, its process pool, fleet
+   and serving tier on the card.  (a) ``process``: a ``gaussian3x3``
+   campaign posted through ``Client`` at the paper's widths and the dse
+   phase's generations to ``CampaignManager(device="cuda",
+   eval_backend="process", process_workers=2)``; gates: no batch
+   labeled in the parent (no fallback, no launch), the children's summed
+   launches show population_lut in every QoR chunk and rank_k =
+   ``DEPLOY_LAUNCHES`` x the children's runs paid, ``qor``/``energy`` of
+   64 stored genomes byte-equal to a CPU label; its wall beside the dse
+   phase's.  (b) ``serve_images``: 64 concurrent ``POST /serve`` for
+   gaussian3x3 over the exact/balanced/budget tiers and an energy budget
+   against (a)'s front, each output and measured QoR equal to the CPU
+   ``simulate_batch`` of its genome and inputs, population_lut
+   launched; ``hot_swap``: a second campaign (the paper's widths, seed
+   + 1) completes under 8 threads of paced traffic, the merged front it
+   changes swaps in, no request fails and every response's genome is
+   its catalog version's choice.  (c)
+   ``serve_lm``: the lm_dse phase's granite-8b accelerator and front
+   registered with the hub (no second model: peak within 1 GiB of that
+   phase's), its budget tier served to 8 concurrent 1024-token prompts,
+   32 tokens each, equal to the ``lm_dse_serve`` line's, with
+   flash_attention_sm90 launched 36 times for the one prefill.  (d)
+   ``fleet``: an ``hevc_dct4x4`` campaign on the thread backend, then on
+   ``eval_backend="fleet"`` with two ``python -m
+   repro_torch.fleet.worker --device cuda`` processes on the card, one
+   killed (SIGKILL) while it holds a lease after its first result; gates:
+   front and every stored label byte-identical to the thread run, a
+   requeue, no fallback, both workers' reported launches carrying
+   population_lut and rank_k, the parent's launches no more than the
+   orchestrator's reclaimed chunks need.
 
 Every kernel's launch count is set to 0 just before each run of phases 4
-to 10 (each accelerator's labels, each dse, each cache batch, each figure
+to 11 (each accelerator's labels, each dse, each cache batch, each figure
 run, each hier run, the LM's dse, its served tier and falcon's labels,
-each serve) and read just after; a kernel of the
+each serve, each service campaign and request set) and read just after;
+the process pool's children and the fleet's workers count their own
+launches and report them with each chunk's labels, and those reports
+are what the service phase reads.  A kernel of the
 phase's main path (``MAIN_PATH``) that the phase did not launch, or did
 not launch once per layer for the serve phases, fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
@@ -257,6 +293,7 @@ MAIN_PATH = {
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
+    "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
 # rank_k launches of one variant's deployment graph (``build_deploy``):
 # one grouped product for gaussian3x3 and an MCM row, four products (one
@@ -268,7 +305,7 @@ DEPLOY_LAUNCHES = {
     "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
-          "hier", "lm_dse", "serve")
+          "hier", "lm_dse", "serve", "service")
 # the figs phase: Fig. 5's 1000 training and 1000 test genomes; Figs.
 # 8/9's MCM rows and NSGA-II generations; the power surrogate of both
 # (the JAX package's default, bayesian_ridge, is singular on pipeline E's
@@ -276,7 +313,10 @@ PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
 # ``reduced``)
 FIG5_TRAIN = FIG5_TEST = 1000
 FIGS_ROWS = (0, 1, 2, 3)
-FIGS_GENERATIONS = 25
+# 25 until the service phase joined the script; cut to keep the whole
+# run near 950 s (each generation at pop 1000 costs 0.15-0.4 s of host
+# time, the campaign service's tick included)
+FIGS_GENERATIONS = 10
 FIGS_HW_MODEL = "ridge"
 # the hier phase on smoothed_dct: the flat campaign at the paper's widths;
 # each stage campaign at the same widths and half the training labels, so
@@ -294,7 +334,15 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, so consecutive lines give each step's
+    share of the whole run."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -840,6 +888,49 @@ def _lut_rows(rng, dev, lib, x9, w9, specs) -> list:
             lambda x=x, w=w, t=t_dev, s=signed: lut_matmul(x, w, t, signed=s),
             m, k, n, repeats=5 if k > 4096 else 10))
     return rows
+
+
+# rank_k as the first launch of a fresh process, at 9 groups whose ranks
+# sum to 23: 47320 bytes of dynamic shared memory, which with the
+# kernel's 2176 bytes of static tiles passes the 48 KB a block has until
+# the launch raises the attribute.  A process-pool child met exactly
+# this (the parent had always raised it on an earlier, larger variant).
+_RANK_K_FRESH = """
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np, torch
+from repro_torch import _build
+from repro_torch.kernels.approx_matmul import (
+    grouped_rank_k_matmul, grouped_rank_k_matmul_kernel)
+from repro_torch.kernels.approx_matmul.ops import _pack
+rng = np.random.default_rng(0)
+packed = _pack([(i, i + 1, rng.standard_normal((256, r)).astype(np.float32),
+                 rng.standard_normal((256, r)).astype(np.float32), False, 0)
+                for i, r in enumerate([3, 3, 3, 3, 3, 2, 2, 2, 2])])
+x = torch.from_numpy(rng.integers(0, 256, (900, 9)).astype(np.int32)).cuda()
+w = torch.from_numpy(rng.integers(0, 256, (9, 1)).astype(np.int32)).cuda()
+got = grouped_rank_k_matmul_kernel(x, w, packed)
+want = grouped_rank_k_matmul(x, w, torch.from_numpy(packed).cuda())
+torch.testing.assert_close(got, want, rtol={rtol}, atol={atol})
+print(float((got - want).abs().max()), _build.LAUNCHES["rank_k"])
+"""
+
+
+def phase_rank_k_fresh() -> dict:
+    """``_RANK_K_FRESH`` in a new process: builds nothing (the build phase
+    did), launches once, agrees with the plain version."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RANK_K_FRESH.format(
+            src=str(ROOT / "src"), rtol=RANK_RTOL, atol=RANK_ATOL)],
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"rank_k as a fresh process's first launch: {proc.stderr[-2000:]}")
+    err, launches = proc.stdout.split()
+    out = {"phase": "kernel_rank_k_fresh_process", "n_uv": 11776,
+           "dynamic_smem_bytes": 47320, "static_smem_bytes": 2176,
+           "max_abs_err": float(err), "launches": int(launches)}
+    emit(out)
+    return out
 
 
 def device_ms(fn, *, calls: int = 20) -> float:
@@ -2232,8 +2323,9 @@ def phase_lm_dse(seed: int) -> dict:
         "launches": launches,
     }
     emit(dse_out)
+    # the accelerator stays (its model freed, rebuilt from the seed on
+    # next use) for the service phase, which serves its front's tiers
     acc.release()
-    del acc
     torch.cuda.empty_cache()
 
     # the budget tier served at full width from the same seed
@@ -2283,6 +2375,10 @@ def phase_lm_dse(seed: int) -> dict:
     emit(serve_out)
     del model
     torch.cuda.empty_cache()
+    lm_state = {"acc": acc, "catalog": cat, "prompts": prompts,
+                "tokens": tokens[:, L:].cpu().tolist(),
+                "genome": list(budget_sel.point.genome),
+                "peak": max(peak, serve_peak)}
 
     # falcon-mamba-7b: labels of random genomes at full width and depth
     fcfg = get_config("falcon-mamba-7b")
@@ -2323,12 +2419,618 @@ def phase_lm_dse(seed: int) -> dict:
     torch.cuda.empty_cache()
     out = {"phase": "lm_dse_total", "launches": total}
     emit(out)
+    return out, lm_state
+
+
+# ---------------------------------------------------------------------------
+# the campaign service: HTTP front end, process pool, fleet, serving tier
+# ---------------------------------------------------------------------------
+
+# every campaign of the service phase at the paper's widths (n_train
+# 1000, pop 1000, 200 parents, 4 QoR images) and FIGS_HW_MODEL; the
+# process-pool campaign at the dse phase's generations, the fleet's at
+# FIGS_GENERATIONS
+SERVICE_WIDTHS = dict(n_train=1000, pop_size=1000, n_parents=200,
+                      n_qor_samples=4, hw_model=FIGS_HW_MODEL)
+SERVICE_WORKERS = 2          # process-pool children, and fleet workers
+SERVICE_CPU_SUBSET = 64      # stored genomes re-labeled on the CPU
+SERVICE_FLEET_ACCEL = "hevc_dct4x4"
+SERVICE_FLEET_CHUNK = 100    # genomes a lease: 10 leases a training batch
+SERVICE_HEARTBEAT_TTL_S = 6.0
+SERVICE_LEASE_TTL_S = 120.0
+SERVICE_IMAGE_REQUESTS = 64
+SERVICE_HTTP_THREADS = 16
+SERVICE_SWAP_AFTER = 16      # drill requests served past the hot swap
+# the drill's second campaign runs at SERVICE_WIDTHS from the next seed:
+# the hub swaps when its front adds a point to the merged front
+# (``global_front``), which the drill's gate checks
+SERVICE_DRILL_THREADS = 8
+SERVICE_DRILL_PAUSE_S = 0.02
+LABEL_DET_KEYS = ("qor", "latency", "energy", "flops", "hbm_bytes")
+
+
+def _service(mgr):
+    """(HTTP server on a free local port over ``mgr``, its Client)."""
+    import threading
+
+    from repro_torch.service.api import Client, make_server
+
+    srv = make_server(mgr, port=0)
+    threading.Thread(target=srv.serve_forever, name="service-http",
+                     daemon=True).start()
+    return srv, Client(f"http://127.0.0.1:{srv.server_address[1]}",
+                       timeout=1200.0)
+
+
+def _zero_launches() -> dict:
+    from repro_torch import _build
+
+    return {k: 0 for k in _build.KERNELS}
+
+
+def _stored(mgr, ctx, genomes) -> dict:
+    """The store's records of ``genomes`` under ``ctx``, as label arrays."""
+    import numpy as np
+
+    recs = [mgr.store.get(ctx.key(g)) for g in genomes]
+    check(all(r is not None for r in recs), "a labeled genome is not stored")
+    return {k: np.array([float(r[k]) for r in recs]) for k in LABEL_DET_KEYS}
+
+
+def _service_process(seed: int, generations: int, thread_wall) -> tuple:
+    """Step 1: a gaussian3x3 campaign posted over HTTP to a service whose
+    ground truth runs in two spawned children on the card."""
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.core.features import synth
+    from repro_torch.service import CampaignManager, EvalContext
+
+    lib = default_library()
+    t0 = time.perf_counter()
+    mgr = CampaignManager(device="cuda", eval_backend="process",
+                          process_workers=SERVICE_WORKERS, eval_workers=2,
+                          campaign_workers=2, max_batch=1000,
+                          synth_cache=synth.SynthCache())
+    pool_s = time.perf_counter() - t0
+    srv, cli = _service(mgr)
+    spec = dict(SERVICE_WIDTHS, accel="gaussian3x3",
+                n_generations=generations, seed=seed)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cid = cli.submit(**spec)
+    st = cli.wait(cid, timeout=900)
+    wall = time.perf_counter() - t0
+    parent = dict(_build.LAUNCHES)
+    what = "service process"
+    check(st["state"] == "done", f"{what}: campaign {st['state']}: "
+                                 f"{st.get('error')}")
+    sched = mgr.scheduler.stats()
+    lab = sched["labeler"]
+    check(sched["process_batches"] > 0 and sched["process_fallbacks"] == 0
+          and lab["labeled"] == sched["labeled"],
+          f"{what}: {sched['process_fallbacks']} batches fell back "
+          f"in-process, {lab['labeled']} of {sched['labeled']} labels "
+          "from the children")
+    check(parent["population_lut"] == 0 and parent["rank_k"] == 0,
+          f"{what}: the parent launched {parent} while children labeled")
+    check(lab["chunks"] > 0 and lab["chunks_launching"].get(
+              "population_lut", 0) == lab["chunks"],
+          f"{what}: population_lut ran in "
+          f"{lab['chunks_launching'].get('population_lut', 0)} of "
+          f"{lab['chunks']} QoR chunks")
+    runs_paid = lab["synth"]["compiles"]
+    per_variant = DEPLOY_LAUNCHES["gaussian3x3"]
+    check(runs_paid > 0 and lab["launches"]["rank_k"]
+          == per_variant * runs_paid,
+          f"{what}: the children launched rank_k {lab['launches']['rank_k']}"
+          f" times for {runs_paid} runs paid, {per_variant} each")
+    res = mgr.result(cid)
+    front_o = res.front_objectives
+    front_qor = -front_o[:, 0]
+    check(len(front_o) > 0 and np.all(np.isfinite(front_o))
+          and np.any(front_qor < front_qor.max()),
+          f"{what}: front empty, not finite or without approximate designs")
+    ctx = mgr._get(cid).ctx
+    uniq = np.unique(res.search.genomes, axis=0)
+    sub = uniq[np.random.default_rng(seed).choice(
+        len(uniq), SERVICE_CPU_SUBSET, replace=False)]
+    stored = _stored(mgr, ctx, sub)
+    cpu = EvalContext(ctx.accel, lib, rank_genes=ctx.rank_genes,
+                      n_qor_samples=ctx.n_qor_samples,
+                      qor_seed=ctx.qor_seed, device="cpu",
+                      hw=ctx.hw).ground_truth(sub)
+    check(ctx.device == "cuda", f"{what}: the campaign's context is on "
+                                f"{ctx.device}")
+    for k in ("qor", "energy"):
+        check(stored[k].tobytes() == np.asarray(cpu[k]).tobytes(),
+              f"{what}: stored {k} differs from a CPU label on the "
+              f"{SERVICE_CPU_SUBSET}-genome subset")
+    out = {"phase": "service", "part": "process", "accel": "gaussian3x3",
+           **spec, "workers": SERVICE_WORKERS, "pool_start_s": pool_s,
+           "wall_s": wall, "thread_wall_s": thread_wall,
+           "wall_ratio_process_over_thread": (
+               wall / thread_wall if thread_wall else None),
+           "timings_s": res.timings, "labeled": sched["labeled"],
+           "batches": sched["batches"],
+           "process_batches": sched["process_batches"],
+           "process_fallbacks": sched["process_fallbacks"],
+           "chunks": lab["chunks"],
+           "chunks_launching": lab["chunks_launching"],
+           "runs_paid": runs_paid, "synth": lab["synth"],
+           "front_size": int(len(front_o)),
+           "cpu_subset_bit_identical": {"genomes": SERVICE_CPU_SUBSET,
+                                        "keys": ["qor", "energy"]},
+           "parent_launches": parent, "launches": lab["launches"],
+           "reduced": {"n_generations": {"paper": 1000, "run": generations},
+                       "hw_model": {"repo_default": "bayesian_ridge",
+                                    "run": FIGS_HW_MODEL}}}
+    emit(out)
+    return out, mgr, srv, cli
+
+
+def _timed_serve(cli, accel, inputs, **kw):
+    t0 = time.perf_counter()
+    r = cli.serve(accel, inputs, **kw)
+    return r, time.perf_counter() - t0
+
+
+def _check_served(acc, lib, pairs, what) -> None:
+    """Each (inputs, response): outputs and measured QoR equal to the
+    CPU ``simulate_batch`` of the response's genome on those inputs."""
+    import numpy as np
+
+    from repro_torch.core import qor as qor_mod
+
+    X = np.stack([x for x, _ in pairs])
+    G = np.array([r["genome"] for _, r in pairs], dtype=np.int64)
+    outs = acc.simulate_batch(G, lib, X, per_genome_inputs=True,
+                              device="cpu")
+    refs = acc.exact_output_batch(X, per_genome_inputs=True)
+    for i, (_, r) in enumerate(pairs):
+        check(np.array_equal(np.asarray(r["outputs"]), outs[i])
+              and r["qor"] == qor_mod.psnr(refs[i], outs[i]),
+              f"{what}: request {i} (genome {r['genome']}) differs from "
+              "the CPU simulate_batch")
+
+
+def _pct(values, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def _service_images(mgr, cli, seed: int, generations: int) -> tuple:
+    """Step 3, image requests: 64 concurrent POST /serve against step 1's
+    front over the three tiers and an energy budget, then a hot-swap
+    drill: a second campaign's front swapped in under traffic."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.service import make_accelerator
+
+    lib = default_library()
+    acc = make_accelerator("gaussian3x3")
+    name = acc.name
+    gf = mgr.global_front(name, ("qor", "energy"))
+    energy = float(np.median(np.asarray(gf["front"])[:, 1]))
+    selects = [{"tier": "exact"}, {"tier": "balanced"}, {"tier": "budget"},
+               {"budget": {"energy": energy}}]
+    inputs = [acc.sample_inputs(2, seed=10_000 + i)
+              for i in range(SERVICE_IMAGE_REQUESTS)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVICE_HTTP_THREADS) as ex:
+        futs = [ex.submit(_timed_serve, cli, name, inputs[i],
+                          return_outputs=True, **selects[i % len(selects)])
+                for i in range(SERVICE_IMAGE_REQUESTS)]
+        served = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    what = "service serve_images"
+    check(launches["population_lut"] > 0,
+          f"{what}: the requests launched no population_lut")
+    results = [r for r, _ in served]
+    check(all(r["catalog_version"] == 1 for r in results),
+          f"{what}: not every request served at catalog version 1")
+    _check_served(acc, lib, list(zip(inputs, results)), what)
+    eng = mgr.serving.engine_for(name)
+    st = eng.stats()
+    check(st["errors"] == 0 and st["responses"] == SERVICE_IMAGE_REQUESTS,
+          f"{what}: engine stats {st}")
+    out_images = {
+        "phase": "service", "part": "serve_images", "accel": name,
+        "requests": SERVICE_IMAGE_REQUESTS, "http_threads":
+        SERVICE_HTTP_THREADS, "images_per_request": 2,
+        "selects": selects, "wall_s": wall,
+        "requests_per_s": SERVICE_IMAGE_REQUESTS / wall,
+        "client_latency_s": {"p50": _pct([t for _, t in served], 50),
+                             "p99": _pct([t for _, t in served], 99)},
+        "engine_latency_s": {"p50": _pct([r["latency_s"] for r in results],
+                                         50),
+                             "p99": _pct([r["latency_s"] for r in results],
+                                         99)},
+        "batches": st["batches"], "groups": st["groups"],
+        "tier_selections": st["tier_selections"],
+        "front_points": st["catalog"]["points"],
+        "cpu_bit_identical": SERVICE_IMAGE_REQUESTS,
+        "launches": launches}
+    emit(out_images)
+
+    # hot-swap drill: traffic runs while a second campaign completes
+    v0 = eng.catalog.version
+    spec = dict(SERVICE_WIDTHS, accel=name,
+                n_generations=FIGS_GENERATIONS, seed=seed + 1)
+    _build.reset_launches()
+    pool_before = mgr.scheduler.stats()["labeler"]["launches"]
+    cid = cli.submit(**spec)
+    stop = threading.Event()
+    drill: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def traffic(worker: int) -> None:
+        i = 0
+        while not stop.is_set():
+            x = acc.sample_inputs(2, seed=20_000 + 1000 * worker + i)
+            sel = selects[(worker + i) % len(selects)]
+            try:
+                r = cli.serve(name, x, return_outputs=True, **sel)
+            except Exception as exc:  # noqa: BLE001 - counted, then gated
+                with lock:
+                    errors.append(repr(exc))
+                return
+            with lock:
+                drill.append((x, sel, r))
+            i += 1
+            time.sleep(SERVICE_DRILL_PAUSE_S)
+
+    threads = [threading.Thread(target=traffic, args=(w,), daemon=True)
+               for w in range(SERVICE_DRILL_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    # until SERVICE_SWAP_AFTER requests ran on the swapped front, or the
+    # campaign failed, or a minute passed after it ended with no swap
+    deadline = time.monotonic() + 900
+    ended = None
+    while time.monotonic() < deadline and not errors:
+        state = mgr.status(cid)["state"]
+        if state == "failed":
+            break
+        if state == "done":
+            with lock:
+                after = sum(r["catalog_version"] > v0 for _, _, r in drill)
+            if after >= SERVICE_SWAP_AFTER:
+                break
+            ended = ended or time.monotonic()
+            if time.monotonic() - ended > 60:
+                break
+        time.sleep(0.05)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    drill_wall = time.perf_counter() - t0
+    launches2 = dict(_build.LAUNCHES)
+    what = "service hot_swap"
+    check(not errors, f"{what}: dropped requests: {errors[:3]}")
+    check(mgr.status(cid)["state"] == "done",
+          f"{what}: second campaign {mgr.status(cid)}")
+    versions = sorted({r["catalog_version"] for _, _, r in drill})
+    check(eng.catalog.version > v0 and versions[0] == v0
+          and versions[-1] > v0,
+          f"{what}: no hot swap under traffic (versions served {versions}, "
+          f"catalog v{eng.catalog.version})")
+    for x, sel, r in drill:
+        cat = eng._catalogs.get(r["catalog_version"])
+        check(cat is not None and list(cat.select(**sel).point.genome)
+              == r["genome"],
+              f"{what}: a response's genome is not its catalog's choice")
+    check(eng.stats()["errors"] == 0, f"{what}: engine errors")
+    sample = drill[:: max(1, len(drill) // 32)]
+    _check_served(acc, lib, [(x, r) for x, _, r in sample], what)
+    pool_after = mgr.scheduler.stats()["labeler"]["launches"]
+    children = {k: pool_after[k] - pool_before.get(k, 0)
+                for k in pool_after}
+    total = {k: launches2.get(k, 0) + children.get(k, 0)
+             for k in set(launches2) | set(children)}
+    out_swap = {
+        "phase": "service", "part": "hot_swap", "accel": name,
+        "second_campaign": spec, "wall_s": drill_wall,
+        "requests": len(drill), "versions_served": versions,
+        "served_after_swap": sum(r["catalog_version"] > v0
+                                 for _, _, r in drill),
+        "client_threads": SERVICE_DRILL_THREADS,
+        "pause_s": SERVICE_DRILL_PAUSE_S, "dropped": 0,
+        "cpu_checked": len(sample), "hot_swaps": eng.stats()["hot_swaps"],
+        "parent_launches": launches2, "children_launches": children,
+        "launches": total,
+        "reduced": {"n_generations": {"paper": 1000,
+                                      "run": FIGS_GENERATIONS},
+                    "hw_model": {"repo_default": "bayesian_ridge",
+                                 "run": FIGS_HW_MODEL}}}
+    emit(out_swap)
+    return out_images, out_swap
+
+
+def _service_lm(mgr, cli, lm_state) -> dict:
+    """Step 3, LM requests: the lm_dse phase's granite-8b accelerator and
+    its front registered with the manager's hub (no second model), the
+    budget tier served through POST /serve to 8 concurrent 1024-token
+    prompts, 32 tokens each, against the lm_dse_serve line's tokens."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch import _build
+
+    acc, cat = lm_state["acc"], lm_state["catalog"]
+    b, gen = SERVE["batch"], SERVE["gen"]
+    eng = mgr.serving.register(acc, cat, max_batch=b, max_wait_s=60.0)
+    prompts = lm_state["prompts"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(b) as ex:
+        futs = [ex.submit(_timed_serve, cli, acc.name, prompts[i].tolist(),
+                          tier="budget", gen=gen) for i in range(b)]
+        served = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    what = "service serve_lm"
+    results = [r for r, _ in served]
+    st = eng.stats()
+    check(st["groups"] == 1 and all(r["group_size"] == b for r in results),
+          f"{what}: the {b} prompts ran in {st['groups']} groups")
+    check(all(r["genome"] == lm_state["genome"] for r in results),
+          f"{what}: the budget tier is not the lm_dse_serve genome")
+    for i, r in enumerate(results):
+        check(r["tokens"] == lm_state["tokens"][i],
+              f"{what}: prompt {i}'s tokens differ from lm_dse_serve's")
+    layers = acc.cfg.n_layers
+    check(launches["flash_attention_sm90"] == layers * st["groups"],
+          f"{what}: flash_attention_sm90 launched "
+          f"{launches['flash_attention_sm90']} times for {st['groups']} "
+          f"prefill of {layers} layers")
+    check(peak <= lm_state["peak"] + 2 ** 30,
+          f"{what}: peak {peak} bytes, more than 1 GiB over the lm_dse "
+          f"phase's {lm_state['peak']}: a second model?")
+    out = {"phase": "service", "part": "serve_lm", "accel": acc.name,
+           "tier": "budget", "genome": lm_state["genome"], **SERVE,
+           "requests": b, "wall_s": wall,
+           "prefill_s": results[0]["prefill_s"],
+           "decode_s": results[0]["decode_s"],
+           "decode_tokens_per_s": results[0]["tokens_per_s"],
+           "client_latency_s": {"p50": _pct([t for _, t in served], 50),
+                                "max": max(t for _, t in served)},
+           "tokens_equal_lm_dse_serve": True,
+           "max_memory_allocated": peak,
+           "lm_dse_peak": lm_state["peak"],
+           "param_bytes": acc.model.param_bytes(), "launches": launches}
+    emit(out)
+    acc.release()
+    torch.cuda.empty_cache()
     return out
+
+
+def _spawn_fleet_worker(base: str, wid: str, log_dir: str):
+    import os
+
+    log = open(os.path.join(log_dir, f"{wid}.log"), "w")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.fleet.worker",
+         "--orchestrator", base, "--id", wid, "--device", "cuda",
+         "--max-idle-s", "900"],
+        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+    return proc, log
+
+
+def _wait_until(pred, timeout: float, what: str, procs=()) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        for p, log in procs:
+            if p.poll() is not None:
+                log.flush()
+                tail = Path(log.name).read_text()[-2000:]
+                check(False, f"{what}: worker exited {p.returncode}:\n{tail}")
+        check(time.monotonic() < deadline, f"{what}: timed out")
+        time.sleep(0.002)
+
+
+def _service_fleet(seed: int) -> dict:
+    """Step 2: an hevc_dct4x4 campaign on the thread backend, then the
+    same spec on the fleet backend with two worker processes on the card,
+    one killed (SIGKILL) while it holds a lease."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.core.features import synth
+    from repro_torch.service import CampaignManager, CampaignSpec
+
+    spec = dict(SERVICE_WIDTHS, accel=SERVICE_FLEET_ACCEL,
+                n_generations=FIGS_GENERATIONS, seed=seed)
+    what = "service fleet"
+    ref_mgr = CampaignManager(device="cuda", eval_workers=2,
+                              campaign_workers=2, max_batch=1000,
+                              synth_cache=synth.SynthCache())
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rcid = ref_mgr.submit(CampaignSpec(**spec))
+        state = ref_mgr.wait(rcid, timeout=900)
+        thread_wall = time.perf_counter() - t0
+        thread_launches = dict(_build.LAUNCHES)
+        check(state == "done", f"{what}: thread campaign {state}")
+        ref = ref_mgr.result(rcid)
+        ref_stored = _stored(ref_mgr, ref_mgr._get(rcid).ctx,
+                             np.unique(ref.search.genomes, axis=0))
+    finally:
+        ref_mgr.shutdown()
+
+    mgr = CampaignManager(device="cuda", eval_backend="fleet",
+                          eval_workers=2, campaign_workers=2, max_batch=1000,
+                          lease_ttl_s=SERVICE_LEASE_TTL_S,
+                          heartbeat_ttl_s=SERVICE_HEARTBEAT_TTL_S,
+                          fleet_chunk=SERVICE_FLEET_CHUNK,
+                          synth_cache=synth.SynthCache())
+    srv, cli = _service(mgr)
+    fleet = mgr.scheduler.fleet
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="fleet_") as logs:
+        try:
+            t0 = time.perf_counter()
+            procs = [_spawn_fleet_worker(cli.base, f"w{i}", logs)
+                     for i in range(SERVICE_WORKERS)]
+            _wait_until(lambda: fleet.stats()["live"] == SERVICE_WORKERS,
+                        300, f"{what}: workers to register", procs)
+            join_s = time.perf_counter() - t0
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            cid = cli.submit(**spec)
+
+            def victim_holds_second_lease():
+                with fleet._cv:
+                    w = fleet._workers["w0"]
+                    return w.chunks >= 1 and any(
+                        lease.worker == "w0"
+                        for lease in fleet._leases.values())
+
+            _wait_until(victim_holds_second_lease, 600,
+                        f"{what}: w0 to hold a lease after a result", procs)
+            procs[0][0].send_signal(signal.SIGKILL)
+            killed_at = time.perf_counter() - t0
+            st = cli.wait(cid, timeout=900)
+            wall = time.perf_counter() - t0
+            parent = dict(_build.LAUNCHES)
+            check(st["state"] == "done",
+                  f"{what}: fleet campaign {st['state']}: {st.get('error')}")
+            res = mgr.result(cid)
+            fs = fleet.stats()
+            sched = mgr.scheduler.stats()
+            stored = _stored(mgr, mgr._get(cid).ctx,
+                             np.unique(res.search.genomes, axis=0))
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+                log.close()
+            srv.shutdown()
+            mgr.shutdown()
+    check(np.array_equal(res.front_genomes, ref.front_genomes)
+          and res.front_objectives.tobytes()
+          == ref.front_objectives.tobytes(),
+          f"{what}: the front differs from the thread backend's")
+    check(np.array_equal(np.unique(res.search.genomes, axis=0),
+                         np.unique(ref.search.genomes, axis=0)),
+          f"{what}: labeled another genome set than the thread backend")
+    for k in LABEL_DET_KEYS:
+        check(stored[k].tobytes() == ref_stored[k].tobytes(),
+              f"{what}: a stored {k} differs from the thread backend's")
+    check(fs["requeues"] >= 1 and fs["expired_leases"] >= 1,
+          f"{what}: the killed lease never requeued ({fs['requeues']})")
+    check(sched["fleet_batches"] > 0 and sched["fleet_fallbacks"] == 0,
+          f"{what}: {sched['fleet_fallbacks']} batches fell back "
+          "in-process")
+    workers = fs["workers"]
+    # in-process labels only as the orchestrator's reclaims: rank_k at
+    # most once a synthesis run for each reclaimed genome, population_lut
+    # at most a worker's most launches a chunk for each reclaimed chunk
+    lut_per_chunk = max(-(-w["launches"].get("population_lut", 0)
+                          // max(1, w["chunks"])) for w in workers.values())
+    check(parent["rank_k"] <= fs["local_labels"]
+          * DEPLOY_LAUNCHES[SERVICE_FLEET_ACCEL]
+          and parent["population_lut"] <= fs["local_fallback_chunks"]
+          * lut_per_chunk,
+          f"{what}: the parent launched {parent} for "
+          f"{fs['local_fallback_chunks']} reclaimed chunks "
+          f"({fs['local_labels']} labels)")
+    for wid, w in workers.items():
+        check(w["launches"].get("population_lut", 0) > 0
+              and w["launches"].get("rank_k", 0) > 0
+              and w["device"].startswith("cuda"),
+              f"{what}: worker {wid} reported {w['device']} launches "
+              f"{w['launches']}")
+    worker_launches = _zero_launches()
+    for w in workers.values():
+        _add_launches(worker_launches, w["launches"])
+    total = dict(worker_launches)
+    _add_launches(total, thread_launches)
+    _add_launches(total, parent)
+    out = {"phase": "service", "part": "fleet", "accel": SERVICE_FLEET_ACCEL,
+           **spec, "workers": SERVICE_WORKERS, "lease_chunk":
+           SERVICE_FLEET_CHUNK, "heartbeat_ttl_s": SERVICE_HEARTBEAT_TTL_S,
+           "workers_join_s": join_s, "thread_wall_s": thread_wall,
+           "fleet_wall_s": wall, "killed_w0_at_s": killed_at,
+           "front_size": int(len(res.front_genomes)),
+           "front_and_labels_identical_to_thread": True,
+           "fleet": {k: fs[k] for k in (
+               "batches", "chunks", "requeues", "expired_leases",
+               "dead_workers", "duplicate_results", "local_fallback_chunks",
+               "remote_labels", "local_labels")},
+           "per_worker": {wid: {k: w[k] for k in (
+               "alive", "labels", "chunks", "labels_per_sec", "device",
+               "launches")} for wid, w in workers.items()},
+           "thread_launches": thread_launches, "parent_launches": parent,
+           "launches": total,
+           "reduced": {"n_generations": {"paper": 1000,
+                                         "run": FIGS_GENERATIONS},
+                       "hw_model": {"repo_default": "bayesian_ridge",
+                                    "run": FIGS_HW_MODEL}}}
+    emit(out)
+    return out
+
+
+def phase_service(seed: int, generations: int, dse_walls: dict,
+                  lm_state) -> dict:
+    """The campaign service's HTTP front end, process pool, fleet and
+    serving tier on the card (module docstring, phase 11)."""
+    import torch
+
+    total = _zero_launches()
+    out, mgr, srv, cli = _service_process(seed, generations,
+                                          dse_walls.get("gaussian3x3"))
+    _add_launches(total, out["launches"])
+    try:
+        images, swap = _service_images(mgr, cli, seed, generations)
+        _add_launches(total, images["launches"])
+        _add_launches(total, swap["launches"])
+        if lm_state is not None:
+            lm = _service_lm(mgr, cli, lm_state)
+            _add_launches(total, lm["launches"])
+    finally:
+        srv.shutdown()
+        mgr.shutdown()
+    torch.cuda.empty_cache()
+    fleet = _service_fleet(seed)
+    _add_launches(total, fleet["launches"])
+    for k in MAIN_PATH["service"]:
+        check(total[k] > 0 or (k == "flash_attention_sm90"
+                               and lm_state is None),
+              f"service: launched no {k} kernel")
+    line = {"phase": "service_total", "launches": total}
+    emit(line)
+    return line
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--generations", type=int, default=100,
+    # 100 until the service phase joined the script, 50 until its
+    # hot-swap campaign ran at the paper's widths (see FIGS_GENERATIONS)
+    ap.add_argument("--generations", type=int, default=25,
                     help="NSGA-II generations of the dse phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2357,6 +3059,7 @@ def main(argv=None) -> int:
         rows = phase_kernels(args.seed) if "kernel" in phases else []
         if "kernel" in phases:
             phase_lut_crossover(args.seed)
+            phase_rank_k_fresh()
         runs = []
         if "labels" in phases:
             runs += [phase_labels(acc, batches, args.seed)
@@ -2381,12 +3084,19 @@ def main(argv=None) -> int:
             runs.append(phase_figs(args.seed, hevc_result))
         if "hier" in phases:
             runs.append(phase_hier(args.seed))
+        lm_state = None
         if "lm_dse" in phases:
-            runs.append(phase_lm_dse(args.seed))
+            line, lm_state = phase_lm_dse(args.seed)
+            runs.append(line)
         if "serve" in phases:
             runs.append(phase_serve("granite-8b", args.seed))
             runs.append(phase_serve("granite-8b", args.seed, approx=True))
             runs.append(phase_serve("falcon-mamba-7b", args.seed))
+        if "service" in phases:
+            dse_walls = {r["accel"]: r["wall_s"] for r in runs
+                         if r.get("phase") == "dse"}
+            runs.append(phase_service(args.seed, args.generations,
+                                      dse_walls, lm_state))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -176,7 +176,8 @@ def call(name: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(
-            f"repro_torch: {name} kernel launch failed (cudaError {rc})")
+            f"repro_torch: {name} kernel launch failed (cudaError {rc}) on "
+            f"{device} with arguments {args}")
     count_launch(name)
 
 

@@ -30,6 +30,8 @@ __all__ = [
     "H100_SXM",
     "TPUv5e",
     "V5E",
+    "HW_MODELS",
+    "hw_name",
     "RooflineTerms",
     "roofline",
 ]
@@ -133,6 +135,19 @@ class TPUv5e:
 V5E = TPUv5e()
 
 Hardware = Union[H100, TPUv5e]
+
+# the cost models by the name the CLIs (``--hw``) and the fleet's wire
+# descriptors give them
+HW_MODELS = {"h100": H100_SXM, "v5e": V5E}
+
+
+def hw_name(hw: Hardware) -> str:
+    """The ``HW_MODELS`` name of ``hw``; ``KeyError`` for a cost model
+    that has none (a context costed on it cannot cross a process)."""
+    for name, model in HW_MODELS.items():
+        if hw == model:
+            return name
+    raise KeyError(f"cost model {hw!r} has no name in HW_MODELS")
 
 
 @dataclass(frozen=True)

@@ -110,6 +110,16 @@ __global__ void rank_k_kernel(const int* __restrict__ x,
   if (row < M && col < N) out[(long long)row * N + col] = total;
 }
 
+// The kernel's static shared memory (its xs/ws tiles) as compiled, read
+// once from the function's attributes.
+cudaError_t static_smem(size_t* bytes) {
+  static cudaFuncAttributes attrs;
+  static const cudaError_t status =
+      cudaFuncGetAttributes(&attrs, rank_k_kernel);
+  *bytes = attrs.sharedSizeBytes;
+  return status;
+}
+
 }  // namespace
 
 // packed: see the layout above; n_uv: the float32 words of its tables
@@ -120,7 +130,13 @@ extern "C" int rank_k_grouped(const void* x, const void* w,
   if (m == 0 || n == 0) return 0;
   if (groups <= 0 || n_uv < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)n_uv + (size_t)kDesc * groups);
-  if (smem > 48 * 1024) {
+  size_t static_bytes = 0;
+  const cudaError_t got = static_smem(&static_bytes);
+  if (got != cudaSuccess) return (int)got;
+  // without the attribute a block has 48 KB of shared memory in all,
+  // the static tiles included; the attribute also persists in the
+  // process, so a launch must not count on an earlier one having set it
+  if (smem + static_bytes > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
         rank_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;

@@ -8,7 +8,10 @@ campaigns, composition and end-to-end verification
 
 Labels run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain PyTorch versions) with the cost model ``--hw`` (default ``h100``;
-``v5e`` gives the JAX package's labels and store keys).  Prints
+``v5e`` gives the JAX package's labels and store keys), on the
+``--eval-backend``: threads in this process, a spawned process pool on
+``--device``, or a fleet of ``python -m repro_torch.fleet.worker``
+processes that join the orchestrator this CLI starts.  Prints
 per-stage campaign stats, the composition summary and the verified
 application-level Pareto front, plus the ground-truth-call count
 against the flat joint-genome space size.
@@ -23,14 +26,14 @@ import numpy as np
 
 from .. import obs
 from ..core.acl.library import default_library
-from ..core.hw import H100_SXM, V5E
+from ..core.hw import HW_MODELS
 from ..hierarchy.search import HierarchicalConfig, run_hierarchical
 from ..service.campaigns import CampaignManager, make_accelerator
 
 __all__ = ["main"]
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--accel", default="smoothed_dct",
                     help="a staged pipeline accelerator name")
@@ -57,13 +60,21 @@ def main():
                          "the standalone accelerator's compiles) and the "
                          "end-to-end verification")
     ap.add_argument("--eval-workers", type=int, default=2)
-    ap.add_argument("--eval-backend", choices=("thread",), default="thread",
-                    help="ground-truth backend for every stage campaign "
-                         "(the process pool and the fleet are not ported)")
+    ap.add_argument("--eval-backend", choices=("thread", "process", "fleet"),
+                    default="thread",
+                    help="ground-truth backend for every stage campaign: "
+                         "threads, a process pool on --device, or a "
+                         "multi-host fleet (an orchestrator HTTP listener "
+                         "is started and 'python -m "
+                         "repro_torch.fleet.worker' processes may join "
+                         "mid-search)")
+    ap.add_argument("--fleet-port", type=int, default=0,
+                    help="orchestrator port for --eval-backend fleet "
+                         "(0 = ephemeral)")
     ap.add_argument("--device", default="cuda",
                     help="where labels run: cuda (the kernels) or cpu "
                          "(their plain PyTorch versions)")
-    ap.add_argument("--hw", choices=("h100", "v5e"), default="h100",
+    ap.add_argument("--hw", choices=tuple(HW_MODELS), default="h100",
                     help="cost model of the hardware labels (v5e: the "
                          "JAX package's labels)")
     ap.add_argument("--campaign-workers", type=int, default=0,
@@ -75,7 +86,7 @@ def main():
                          "--chrome-trace'")
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     if args.trace:
         obs.set_sink(args.trace)
@@ -106,7 +117,7 @@ def main():
         campaign_workers=args.campaign_workers or len(pipeline.stages),
         synth_cache=args.synth_cache or None,
         device=args.device,
-        hw={"h100": H100_SXM, "v5e": V5E}[args.hw],
+        hw=HW_MODELS[args.hw],
     )
     if args.store:
         from ..service.store import open_label_store
@@ -117,11 +128,25 @@ def main():
     if manager.synth_cache is not None:
         print(f"[dse-hier] synth cache {args.synth_cache}: "
               f"{len(manager.synth_cache)} compiled structures")
+    fleet_srv = None
+    if args.eval_backend == "fleet":
+        from ..fleet import serve_fleet
+
+        fleet_srv = serve_fleet(manager.scheduler.fleet,
+                                host="0.0.0.0", port=args.fleet_port)
+        port = fleet_srv.server_address[1]
+        print(f"[dse-hier] fleet orchestrator on :{port} — join workers "
+              f"with: python -m repro_torch.fleet.worker --orchestrator "
+              f"http://<this-host>:{port} --device {args.device}"
+              + (f" --store {args.store}" if args.store else ""))
     try:
         res = run_hierarchical(pipeline, library, cfg,
                                manager=manager, verbose=True)
+        sched = manager.scheduler.stats()
     finally:
         manager.shutdown()
+        if fleet_srv is not None:
+            fleet_srv.shutdown()
         if store is not None:
             store.close()
 
@@ -139,6 +164,10 @@ def main():
     gt = res.ground_truth_calls
     print(f"  ground truth: {gt['stage_campaigns']} stage + {gt['final']} "
           f"final = {gt['total']} calls")
+    print(f"  eval backend {args.eval_backend}: "
+          f"{sched['process_batches']} process / {sched['fleet_batches']} "
+          f"fleet batches, {sched['process_fallbacks']} + "
+          f"{sched['fleet_fallbacks']} fell back in-process")
     front = res.front_objectives
     order = np.argsort(front[:, 0])
     print(f"  verified front ({len(front)} designs) [PSNR dB, energy J]:")
@@ -156,6 +185,12 @@ def main():
                 "front": front.tolist(),
                 "front_genomes": res.front_genomes.tolist(),
                 "val_pcc": res.val_pcc,
+                "eval_backend": {
+                    "backend": args.eval_backend,
+                    **{k: sched[k] for k in (
+                        "process_batches", "process_fallbacks",
+                        "fleet_batches", "fleet_fallbacks")},
+                },
             }, f, indent=1)
 
 

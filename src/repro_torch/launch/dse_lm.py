@@ -13,8 +13,17 @@ plain PyTorch versions) with the cost model ``--hw`` (default ``h100``;
 ``v5e`` gives the JAX package's hardware labels).  The model is the
 arch's reduced config, as in the JAX package.  ``--store`` and
 ``--synth-cache`` go through the port's label store, scheduler and
-synthesis cache.  ``--service`` (a campaign run on a remote service) is
-not ported: the port has no HTTP front end yet, so it raises.
+synthesis cache.
+
+With ``--service http://host:port`` the search runs as a campaign on a
+running ``python -m repro_torch.service`` instance instead of in this
+process: the CLI submits the spec, polls status, and prints the
+front the service computed, on the service's device and cost model
+(``--device`` and ``--hw`` then stay unused).  All HTTP goes through
+``repro_torch.fleet.http`` (bounded retry + backoff), so a briefly
+restarting service does not kill the CLI.  Point the service at
+``--eval-backend fleet`` and the labeling itself fans out across every
+registered fleet worker.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from ..accel.lm import LMAccelerator
 from ..configs import get_config
 from ..core.acl.library import default_library
 from ..core.dse import DSEConfig, default_labeler, run_dse
-from ..core.hw import H100_SXM, V5E
+from ..core.hw import HW_MODELS
 from ..core.nsga2 import NSGA2Config
 
 __all__ = ["main"]
@@ -61,11 +70,17 @@ def main(argv=None):
     ap.add_argument("--eval-workers", type=int, default=2,
                     help="labeling worker threads when --store is set")
     ap.add_argument("--service", default=None, metavar="URL",
-                    help="run on a campaign service (not ported: raises)")
+                    help="run on a campaign service instead of in-process: "
+                         "submit the spec to this base URL (python -m "
+                         "repro_torch.service; with --eval-backend fleet "
+                         "the labels come from the whole fleet)")
+    ap.add_argument("--timeout", type=float, default=3600.0,
+                    help="seconds to wait for the remote campaign "
+                         "(--service only)")
     ap.add_argument("--device", default="cuda",
                     help="where labels run: cuda (the kernels) or cpu "
                          "(their plain PyTorch versions)")
-    ap.add_argument("--hw", choices=("h100", "v5e"), default="h100",
+    ap.add_argument("--hw", choices=tuple(HW_MODELS), default="h100",
                     help="cost model of the hardware labels (v5e: the "
                          "JAX package's labels)")
     ap.add_argument("--out", default=None)
@@ -73,12 +88,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.service:
-        raise ValueError(
-            "--service: the campaign service's HTTP front end "
-            "(service/api.py) is not ported yet (ROADMAP.md §1 item 4); "
-            "run without --service to search in this process")
+        return _run_on_service(args)
 
-    hw = {"h100": H100_SXM, "v5e": V5E}[args.hw]
+    hw = HW_MODELS[args.hw]
     accel = LMAccelerator(get_config(args.arch), seed=args.seed,
                           device=args.device)
     lib = default_library()
@@ -163,6 +175,54 @@ def main(argv=None):
                 "timings": res.timings,
                 "front": front.tolist(),
                 "front_genomes": res.front_genomes.tolist(),
+            }, f, indent=1)
+    return res
+
+
+def _run_on_service(args) -> dict:
+    """Submit the spec as a campaign on a running service and report its
+    result — the remote twin of the in-process path above.  Returns the
+    service's result record."""
+    from ..service.api import Client
+
+    cli = Client(args.service)
+    cid = cli.submit(
+        accel=f"lm:{args.arch}",
+        strategy=args.strategy,
+        pipeline=args.pipeline,
+        n_train=args.n_train,
+        n_qor_samples=2,
+        rank_genes=args.rank_genes,
+        pop_size=args.pop,
+        n_parents=args.parents,
+        n_generations=args.generations,
+        seed=args.seed,
+    )
+    print(f"[dse-lm] campaign {cid} submitted to {args.service}")
+    st = cli.wait(cid, timeout=args.timeout)
+    if st["state"] != "done":
+        raise SystemExit(f"[dse-lm] campaign {cid} ended {st['state']}: "
+                         f"{st.get('error') or 'timeout'}")
+    res = cli.result(cid)
+    front = np.asarray(res["front"], dtype=float)
+    print(f"\n[dse-lm] lm:{args.arch} (strategy={args.strategy}, remote)")
+    if res.get("val_pcc"):
+        print("  surrogate validation PCC: "
+              + ", ".join(f"{k}={v:.3f}" for k, v in res["val_pcc"].items()))
+    order = np.argsort(front[:, 0])
+    print(f"  Pareto front ({len(front)} designs)  [PSNR dB, energy J]:")
+    for i in order[:12]:
+        print(f"    psnr={-front[i, 0]:7.2f}  energy={front[i, 1]:.3e}")
+    if args.out:
+        detail = cli.front(cid)
+        with open(args.out, "w") as f:
+            json.dump({
+                "arch": args.arch,
+                "campaign": cid,
+                "service": args.service,
+                "val_pcc": res.get("val_pcc"),
+                "front": front.tolist(),
+                "front_genomes": detail["genomes"],
             }, f, indent=1)
     return res
 

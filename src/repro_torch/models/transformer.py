@@ -178,11 +178,13 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, caches: Caches, tokens: torch.Tensor,
-                    pos: int) -> torch.Tensor:
+                    pos: int, *,
+                    policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
         """One autoregressive step (tokens (b, 1)) at write position
-        ``pos`` against preallocated caches: (b, 1, V) logits."""
+        ``pos`` against preallocated caches: (b, 1, V) logits.
+        ``policy``, where given, replaces the built one for this step."""
         x = self.run_layers(self.embed_tokens(tokens), caches=caches,
-                            pos=int(pos))
+                            pos=int(pos), policy=policy)
         return self.logits(x)
 
     def init_caches(self, batch: int, max_len: int) -> Caches:

@@ -1,5 +1,4 @@
-"""Pareto-as-a-service: DSE campaigns as a long-lived service, in
-process.
+"""Pareto-as-a-service: DSE campaigns as a long-lived service.
 
 The one-shot ``run_dse`` pays the full ground-truth bill (deployment
 synthesis + behavioral simulation per variant) on every invocation and
@@ -14,13 +13,18 @@ discards the labels at exit.  This package makes exploration a
                      identical genomes in flight, fans batches out to a
                      worker pool,
   * ``campaigns``  — campaign manager + surrogate registry (warm fitted
-                     surrogates keyed by (accel, pipeline, model)).
+                     surrogates keyed by (accel, pipeline, model)),
+  * ``api``        — stdlib HTTP front end (``python -m
+                     repro_torch.service``) with submit/status/result,
+                     Pareto-front queries and ``POST /serve``.
 
-The port's copy of the JAX package's service core.  Ground truth runs
-on the ``thread`` backend, on the device the manager is given.  The
-HTTP front end (``api.py``, ``__main__.py``), the process-pool labeler
-(``workers.py``) and the fleet backend are not ported yet (ROADMAP §1
-item 4).
+Ground truth runs on one of three scheduler backends, on the device the
+manager is given: ``thread`` (in process), ``process`` (spawn-safe pool,
+one host, ``workers.py``), or ``fleet`` — the multi-host
+orchestrator/worker tier in ``repro_torch.fleet``, where remote
+``python -m repro_torch.fleet.worker`` processes lease coalesced genome
+chunks over HTTP, each labeling on its own device, and the service
+degrades to the in-process backend whenever the fleet is empty.
 """
 
 from .store import (
@@ -31,6 +35,7 @@ from .store import (
     label_key,
 )
 from .scheduler import EvalScheduler
+from .workers import ProcessPoolLabeler
 from .campaigns import (
     CampaignManager,
     CampaignSpec,
@@ -47,6 +52,7 @@ __all__ = [
     "JsonlLabelStore",
     "label_key",
     "EvalScheduler",
+    "ProcessPoolLabeler",
     "CampaignManager",
     "CampaignSpec",
     "HierarchicalSpec",

@@ -28,10 +28,9 @@ Warm-surrogate modes (``CampaignSpec.warm_surrogates``):
 
 The port's copy of the JAX package's manager.  It takes ``device`` and
 ``hw`` and hands both to every ``EvalContext`` it builds (and the
-device to every ``lm:<arch>`` accelerator), so its campaigns label on
-that device with that cost model.  What the port does not carry yet
-raises ``ValueError`` naming its ROADMAP item, never falls back: the
-process and fleet backends and the serving hub (§1 item 4).
+device to every ``lm:<arch>`` accelerator and to the process pool), so
+its campaigns label on that device with that cost model; fleet workers
+label on their own devices with the context's cost model.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ from ..core.hw import H100_SXM, Hardware
 from ..core.nsga2 import NSGA2Config
 from ..core.pareto import non_dominated_mask
 from ..core.surrogates import make
-from .scheduler import EvalScheduler, check_backend
+from .scheduler import EvalScheduler
 from .store import LABEL_KEYS, EvalContext, InMemoryLabelStore, LabelStore
 
 _log = obs.get_logger("service.campaigns")
@@ -464,8 +463,8 @@ class _CompactResult:
 
 class CampaignManager:
     """Owns the store, the scheduler, the surrogate registry and a pool
-    of campaign-runner threads.  The port drives it in-process (the JAX
-    package's HTTP front end over it, ``api.py``, is not ported yet)."""
+    of campaign-runner threads.  The HTTP front end (``api.py``) is a
+    thin shell over this object; tests drive it in-process."""
 
     def __init__(
         self,
@@ -474,6 +473,12 @@ class CampaignManager:
         scheduler: Optional[EvalScheduler] = None,
         eval_workers: int = 2,
         eval_backend: str = "thread",
+        process_workers: Optional[int] = None,
+        chunk_size: Optional[int] = None,
+        fleet_fallback: str = "thread",
+        lease_ttl_s: float = 30.0,
+        heartbeat_ttl_s: float = 15.0,
+        fleet_chunk: Optional[int] = None,
         campaign_workers: int = 2,
         hier_workers: int = 1,
         max_batch: int = 32,
@@ -483,18 +488,19 @@ class CampaignManager:
         snapshot_every: int = 1,
         snapshot_path: Optional[str] = None,
         synth_cache: Optional[object] = None,
+        serving: Optional[Dict] = None,
         device=None,
         hw: Hardware = H100_SXM,
     ):
-        check_backend(eval_backend)
         # every EvalContext this manager builds labels on ``device``
         # (None: "cuda") with the cost model ``hw``
         self.device = device
         self.hw = hw
         self.store = store if store is not None else InMemoryLabelStore()
         # persistent structural compile cache (core.features.synth): a
-        # path opens the segmented compile cache shared by every
-        # campaign; a SynthCache object is used as-is; None keeps the
+        # path opens the segmented synthesis cache shared by every
+        # campaign AND (by path) every process-pool labeler worker; a
+        # SynthCache object is used as-is; None keeps the
         # process-default in-memory sharing
         self._owns_synth_cache = isinstance(synth_cache, str)
         if self._owns_synth_cache:
@@ -506,7 +512,13 @@ class CampaignManager:
         self.scheduler = scheduler or EvalScheduler(
             self.store, n_workers=eval_workers,
             max_batch=max_batch, max_wait_s=max_wait_s,
-            backend=eval_backend,
+            backend=eval_backend, process_workers=process_workers,
+            chunk_size=chunk_size,
+            fleet_fallback=fleet_fallback,
+            lease_ttl_s=lease_ttl_s, heartbeat_ttl_s=heartbeat_ttl_s,
+            fleet_chunk=fleet_chunk,
+            synth_cache_path=getattr(self.synth_cache, "path", None),
+            device=device,
         )
         self.registry = SurrogateRegistry()
         # per-campaign search telemetry, sampled at tick boundaries and
@@ -545,9 +557,14 @@ class CampaignManager:
         self._snap_lines = 0
         if snapshot_path:
             self._replay_snapshots(snapshot_path)
-        # front-update listeners fire whenever a campaign completes (the
-        # serving tier's hot-swap signal)
+        # serving tier: front-update listeners (ServingEngine.attach /
+        # ServingHub) fire whenever a campaign completes, so an engine
+        # serving an accelerator hot-swaps in the improved front; the
+        # hub itself is created lazily on first POST /serve
         self._front_listeners: List = []
+        self._serving = None
+        self._serving_kw = dict(serving or {})
+        self._serving_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def _admit(self, spec, kind: str) -> _Campaign:
@@ -1080,17 +1097,33 @@ class CampaignManager:
 
     @property
     def serving(self):
-        """The JAX package's serving hub (``POST /serve``); not ported."""
-        raise ValueError(
-            "the serving tier is not ported yet (ROADMAP.md §1 item 4: "
-            "serving/*)"
-        )
+        """The lazily-created ServingHub (one engine per accelerator)
+        behind POST /serve; its engines run on the manager's device.
+        Uses a dedicated lock: a serving request arriving while a
+        campaign ticks must not contend on _lock."""
+        with self._serving_lock:
+            if self._serving is None:
+                from ..serving import ServingHub
+
+                kw = {"device": self.device, **self._serving_kw}
+                self._serving = ServingHub(self, **kw)
+            return self._serving
+
+    def serving_stats(self) -> Dict:
+        """GET /serving/stats without forcing the hub into existence."""
+        with self._serving_lock:
+            hub = self._serving
+        return hub.stats() if hub is not None else {"engines": {}}
 
     def stats(self) -> Dict:
         """The service's whole labeling economy in one JSON blob: label-
         store hits, in-flight dedup hits, coalesced batches (scheduler);
-        synth-cache hit rate and verification state (synth); population
-        engine counters for this process (sim.fused)."""
+        per-backend labeler counters incl. the process pool's aggregated
+        worker synthesis, engine and launch counters and the fleet's
+        (scheduler.labeler, scheduler.fleet); synth-cache hit rate and
+        verification state (synth); population engine counters for THIS
+        process (sim.fused — worker-process counters ride the labeler
+        stats); the serving engines, once the hub exists."""
         from ..accel import fused
         from ..core.features import synth as synth_mod
 
@@ -1118,13 +1151,19 @@ class CampaignManager:
                 "timeline_campaigns": len(self.timeline.campaigns()),
             },
         }
+        with self._serving_lock:
+            hub = self._serving
+        if hub is not None:
+            out["serving"] = hub.stats()
         return out
 
     def health(self) -> Dict:
         """Readiness/liveness in one JSON blob (``GET /health``): is
         the label store writable, is the scheduler's batcher thread
-        alive, and whether a fault plan is armed.  ``ok`` is the AND of
-        the store and scheduler checks."""
+        alive, how many fleet workers are live (fleet backend only),
+        which serving engines are up, and whether a fault plan is
+        armed.  ``ok`` is the AND of the store and scheduler checks —
+        an empty fleet or an idle serving hub is degraded, not dead."""
         from .. import faults
 
         store_h = self.store.health()
@@ -1137,10 +1176,34 @@ class CampaignManager:
             },
             "faults": faults.stats(),
         }
+        fleet = getattr(self.scheduler, "fleet", None)
+        if fleet is not None:
+            fs = fleet.stats()
+            out["fleet"] = {
+                "registered": fs["registered"],
+                "live": fs["live"],
+                "leases_in_flight": fs["leases_in_flight"],
+                "pending_chunks": fs["pending_chunks"],
+            }
+        with self._serving_lock:
+            hub = self._serving
+        if hub is not None:
+            engines = {}
+            with hub._lock:
+                for name, eng in hub._engines.items():
+                    engines[name] = {
+                        "alive": eng._thread.is_alive(),
+                        "queue_depth": len(eng._queue),
+                    }
+            out["serving"] = {"engines": engines}
         out["ok"] = bool(store_h.get("writable")) and sched_alive
         return out
 
     def shutdown(self, *, wait: bool = True) -> None:
+        with self._serving_lock:
+            hub, self._serving = self._serving, None
+        if hub is not None:
+            hub.close()
         self._hier_pool.shutdown(wait=wait)
         self._pool.shutdown(wait=wait)
         self.scheduler.shutdown(wait=wait)

@@ -18,12 +18,19 @@ Requests are only batched together when they share an evaluation
 context (same accelerator / library / QoR signature) — a batch is one
 ``ctx.ground_truth`` call.
 
-Ground truth runs in-process, on the dispatching worker thread
-(``backend="thread"``, the only backend of the port), and launches its
-kernels on the context's device.  The JAX package's ``"process"``
-(spawn-safe worker pool) and ``"fleet"`` (remote workers) backends are
-not ported yet (ROADMAP §1 item 4); asking for either raises
-``ValueError``.
+``backend`` selects where a batch's ground truth runs: ``"thread"``
+labels in-process on the dispatching worker thread, launching its
+kernels on the context's device; ``"process"`` fans the batch out to a
+spawn-safe worker process pool on ``device`` (``workers.
+ProcessPoolLabeler``), the only way the GIL-bound host work of the
+labels parallelizes; ``"fleet"`` leases batches to remote workers
+registered with the embedded ``repro_torch.fleet`` orchestrator
+(multi-host labeling, each worker on its own device);
+``fleet_fallback`` picks what runs a batch when the fleet is empty or
+the context is not portable.  Contexts a fresh process/host cannot
+rebuild from their descriptor fall back to the in-process path, and
+every such fallback is counted (``process_fallbacks``,
+``fleet_fallbacks``), so ``stats()`` shows the degradation.
 """
 
 from __future__ import annotations
@@ -40,18 +47,7 @@ import numpy as np
 from .. import faults, obs
 from .store import LABEL_KEYS, EvalContext, LabelStore
 
-__all__ = ["EvalScheduler", "check_backend", "gather_futures"]
-
-
-def check_backend(backend: str) -> None:
-    """Raise ``ValueError`` unless ``backend`` is one the port runs."""
-    if backend in ("process", "fleet"):
-        raise ValueError(
-            f"eval backend {backend!r} is not ported yet (ROADMAP.md §1 "
-            f"item 4: service/workers.py and fleet/*); use 'thread'"
-        )
-    if backend != "thread":
-        raise ValueError(f"eval backend must be 'thread', got {backend!r}")
+__all__ = ["EvalScheduler", "gather_futures"]
 
 
 def gather_futures(futures: List[Future], callback) -> None:
@@ -113,14 +109,50 @@ class EvalScheduler:
         max_batch: int = 32,
         max_wait_s: float = 0.02,
         backend: str = "thread",
+        process_workers: Optional[int] = None,
+        chunk_size: Optional[int] = None,
+        synth_cache_path: Optional[str] = None,
+        fleet: Optional[object] = None,
+        fleet_fallback: str = "thread",
+        lease_ttl_s: float = 30.0,
+        heartbeat_ttl_s: float = 15.0,
+        fleet_chunk: Optional[int] = None,
+        device=None,
     ):
-        check_backend(backend)
+        if backend not in ("thread", "process", "fleet"):
+            raise ValueError(
+                f"backend must be 'thread', 'process' or 'fleet', "
+                f"got {backend!r}"
+            )
+        if fleet_fallback not in ("thread", "process"):
+            raise ValueError(
+                f"fleet_fallback must be 'thread' or 'process', "
+                f"got {fleet_fallback!r}"
+            )
         self.store = store
         if hasattr(store, "register_metrics"):
             store.register_metrics()
         self.backend = backend
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)
+        self._proc = None
+        self.fleet = None
+        if backend == "fleet":
+            from ..fleet.orchestrator import FleetCoordinator
+
+            self.fleet = fleet if fleet is not None else FleetCoordinator(
+                lease_ttl_s=lease_ttl_s, heartbeat_ttl_s=heartbeat_ttl_s,
+                chunk_size=fleet_chunk,
+            )
+        if backend == "process" or (backend == "fleet"
+                                    and fleet_fallback == "process"):
+            from .workers import ProcessPoolLabeler
+
+            self._proc = ProcessPoolLabeler(
+                process_workers if process_workers is not None else n_workers,
+                chunk_size=chunk_size, device=device,
+                synth_cache_path=synth_cache_path,
+            )
         self._pool = ThreadPoolExecutor(n_workers, thread_name_prefix="eval")
         self._cv = threading.Condition()
         self._pending: deque = deque()          # _Entry awaiting dispatch
@@ -146,6 +178,17 @@ class EvalScheduler:
         self.n_coalesced_batches = reg.counter(
             "repro_sched_coalesced_batches_total",
             "batches serving more than one campaign")
+        self.n_process_batches = reg.counter(
+            "repro_sched_process_batches_total",
+            "batches labeled on the process pool")
+        self.n_process_fallbacks = reg.counter(
+            "repro_sched_process_fallbacks_total",
+            "batches that fell back from the process pool")
+        self.n_fleet_batches = reg.counter(
+            "repro_sched_fleet_batches_total", "batches leased to the fleet")
+        self.n_fleet_fallbacks = reg.counter(
+            "repro_sched_fleet_fallbacks_total",
+            "batches that fell back from the fleet")
         self.batch_size = reg.histogram(
             "repro_sched_batch_size", "genomes per dispatched batch",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
@@ -296,6 +339,29 @@ class EvalScheduler:
                 for e in batch:
                     e.future.set_exception(exc)
 
+    def _ground_truth(self, ctx: EvalContext, genomes: np.ndarray,
+                      sp=None):
+        """One batched ground-truth call, on the configured backend."""
+        if self.fleet is not None:
+            # empty fleet / unportable context degrades to the fallback
+            # backend below (counted, so /stats shows the degradation)
+            if self.fleet.eligible(ctx):
+                self.n_fleet_batches.inc()
+                if sp is not None:
+                    sp.set(backend="fleet")
+                return self.fleet.label(ctx, genomes)
+            self.n_fleet_fallbacks.inc()
+        if self._proc is not None:
+            if self._proc.can_label(ctx):
+                self.n_process_batches.inc()
+                if sp is not None:
+                    sp.set(backend="process")
+                return self._proc.label(ctx, genomes)
+            self.n_process_fallbacks.inc()
+        if sp is not None:
+            sp.set(backend="thread")
+        return ctx.ground_truth(genomes)
+
     def _run_batch(self, batch: List[_Entry]) -> None:
         ctx = batch[0].ctx
         head = batch[0]
@@ -307,8 +373,7 @@ class EvalScheduler:
                 faults.hit("sched.dispatch", n=len(batch),
                            origin=head.origin)
                 genomes = np.stack([e.genome for e in batch])
-                sp.set(backend="thread")
-                labels = ctx.ground_truth(genomes)
+                labels = self._ground_truth(ctx, genomes, sp)
                 recs = [
                     {k: float(labels[k][i]) for k in LABEL_KEYS}
                     for i in range(len(batch))
@@ -352,6 +417,11 @@ class EvalScheduler:
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict:
+        # per-backend labeler counters (the process pool aggregates its
+        # workers' synthesis, engine and launch counters); taken outside
+        # the cv so a slow pool can't stall submitters
+        labeler = self._proc.stats() if self._proc is not None else None
+        fleet = self.fleet.stats() if self.fleet is not None else None
         # counter reads are registry-instrument scrapes — no _cv needed,
         # so a long-running batch can never stall a stats() poller; only
         # the per-campaign dict still wants the lock
@@ -363,6 +433,12 @@ class EvalScheduler:
             per_campaign = {k: dict(v) for k, v in self.per_campaign.items()}
         return {
             "backend": self.backend,
+            "labeler": labeler,
+            "fleet": fleet,
+            "fleet_batches": int(self.n_fleet_batches.value),
+            "fleet_fallbacks": int(self.n_fleet_fallbacks.value),
+            "process_batches": int(self.n_process_batches.value),
+            "process_fallbacks": int(self.n_process_fallbacks.value),
             "requests": requests,
             "store_hits": store_hits,
             "inflight_dedup_hits": inflight_hits,
@@ -397,4 +473,11 @@ class EvalScheduler:
             self._cv.notify_all()
         if wait:
             self._batcher.join(timeout=5)
+        if self.fleet is not None:
+            # first: a pool thread blocked in fleet.label() reclaims its
+            # remaining chunks in-process and returns, so the pool join
+            # below cannot deadlock on a starved fleet
+            self.fleet.shutdown(wait=wait)
         self._pool.shutdown(wait=wait)
+        if self._proc is not None:
+            self._proc.shutdown(wait=wait)

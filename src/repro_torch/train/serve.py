@@ -8,36 +8,39 @@ LM head: (b, s, vocab) logits of a long prompt would be gigabytes.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..models import ApproxPolicy
 from ..models.transformer import Caches, Transformer
 
 __all__ = ["Generator", "make_prefill_step", "make_decode_step"]
 
 
-def make_prefill_step(model: Transformer, *, impl: str = "kernel") -> Callable:
+def make_prefill_step(model: Transformer, *, impl: str = "kernel",
+                      policy: Optional[ApproxPolicy] = None) -> Callable:
     """``prefill(tokens (b, L), caches) -> (last_logits (b, 1, V),
     caches)``; ``impl`` picks the attention / scan route ("kernel" or
-    "plain")."""
+    "plain"); ``policy``, where given, replaces the model's own."""
 
     @torch.no_grad()
     def prefill(tokens: torch.Tensor, caches: Caches):
         x = model.run_layers(model.embed_tokens(tokens), caches=caches,
-                             impl=impl)
+                             impl=impl, policy=policy)
         return model.logits(x[:, -1:, :]), caches
 
     return prefill
 
 
-def make_decode_step(model: Transformer) -> Callable:
+def make_decode_step(model: Transformer, *,
+                     policy: Optional[ApproxPolicy] = None) -> Callable:
     """``serve_step(caches, tokens (b, 1), pos) -> (next_tokens (b, 1),
-    logits, caches)``, greedy."""
+    logits, caches)``, greedy; ``policy`` as ``make_prefill_step``'s."""
 
     @torch.no_grad()
     def serve_step(caches: Caches, tokens: torch.Tensor, pos: int):
-        logits = model.decode_step(caches, tokens, pos)
+        logits = model.decode_step(caches, tokens, pos, policy=policy)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         return nxt, logits, caches
 
@@ -52,15 +55,17 @@ def _sync(device: torch.device) -> None:
 class Generator:
     """One model's prefill + decode steps, reused across prompt batches.
     Caches are allocated per ``generate`` call, sized (batch, prompt_len +
-    gen).  ``timings`` holds the last call's ``prefill_s`` and
-    ``decode_s`` (host clock around work that ends in a synchronise on
-    the card)."""
+    gen).  ``policy``, where given, replaces the model's own in every
+    step (one float32 model serving many policies, ``accel.lm``).
+    ``timings`` holds the last call's ``prefill_s`` and ``decode_s``
+    (host clock around work that ends in a synchronise on the card)."""
 
-    def __init__(self, model: Transformer, *, impl: str = "kernel"):
+    def __init__(self, model: Transformer, *, impl: str = "kernel",
+                 policy: Optional[ApproxPolicy] = None):
         self.model = model
         self.impl = impl
-        self._prefill = make_prefill_step(model, impl=impl)
-        self._decode = make_decode_step(model)
+        self._prefill = make_prefill_step(model, impl=impl, policy=policy)
+        self._decode = make_decode_step(model, policy=policy)
         self.timings: Dict[str, float] = {}
 
     def generate(self, prompts: torch.Tensor,

@@ -103,6 +103,12 @@ from repro_torch.launch import dse_lm
 from repro_torch.launch.serve import policy_from_front
 from repro_torch.serving import FrontCatalog
 from repro_torch.service import make_accelerator
+from repro_torch.service import api, workers
+from repro_torch.service.__main__ import main as service_main
+from repro_torch.fleet import FleetCoordinator, protocol, leases, http
+from repro_torch.fleet.worker import FleetWorker
+from repro_torch.serving import ServingEngine, ServingHub, SimBackend
+from repro_torch.launch import dse_hier
 import os, tempfile
 import numpy as np
 acc = GaussianFilter()
@@ -124,6 +130,22 @@ for arch in ("falcon-mamba-7b", "granite-8b"):
     g[1, 0] = 1
     labels = default_labeler(lm, lib, n_qor_samples=1, device="cpu")(g)
     assert labels["qor"][0] == 100.0 and labels["qor"][1] < 100.0
+from repro_torch.service import CampaignManager, CampaignSpec
+from repro_torch.service.api import Client, make_server
+import threading
+mgr = CampaignManager(eval_backend="process", process_workers=1,
+                      device="cpu")
+srv = make_server(mgr, port=0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+cli = Client("http://127.0.0.1:%d" % srv.server_address[1])
+cid = cli.submit(accel="mcm2", n_train=8, n_qor_samples=1, pop_size=8,
+                 n_parents=4, n_generations=1)
+assert cli.wait(cid, timeout=300)["state"] == "done"
+assert cli.stats()["scheduler"]["process_batches"] > 0
+x = make_accelerator("mcm2").sample_inputs(2, seed=1)
+assert cli.serve("mcm2", x, tier="budget")["qor"] > 0
+srv.shutdown()
+mgr.shutdown()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LEAKED", bad)
@@ -177,6 +199,10 @@ def _entry_points():
 
     lm_acc = LMAccelerator(get_config("granite-8b"))
     g_lm = lm_acc.exact_genome(LIB)[None]
+    from repro_torch.fleet.worker import FleetWorker
+    from repro_torch.serving import ServingEngine
+    from repro_torch.service import CampaignManager, ProcessPoolLabeler
+
     return {
         "default_labeler": lambda: dse.default_labeler(acc, LIB),
         "label_variants": lambda: synth.label_variants(acc, g, LIB,
@@ -193,6 +219,11 @@ def _entry_points():
             g_lm, LIB, lm_acc.sample_inputs(1)),
         "lm_label_variants": lambda: synth.label_variants(
             lm_acc, g_lm, LIB, qor_inputs=lm_acc.sample_inputs(1)),
+        "ProcessPoolLabeler": lambda: ProcessPoolLabeler(1),
+        "process_backend_manager": lambda: CampaignManager(
+            eval_backend="process"),
+        "FleetWorker": lambda: FleetWorker("http://127.0.0.1:1"),
+        "ServingEngine": lambda: ServingEngine(acc, LIB),
     }
 
 
@@ -200,7 +231,10 @@ def _entry_points():
                                   "qor_batch", "simulate_batch", "run_dse",
                                   "serve_batch", "Generator",
                                   "hevc_qor_batch", "hevc_simulate_batch",
-                                  "lm_qor_batch", "lm_label_variants"])
+                                  "lm_qor_batch", "lm_label_variants",
+                                  "ProcessPoolLabeler",
+                                  "process_backend_manager", "FleetWorker",
+                                  "ServingEngine"])
 def test_entry_point_without_device_raises_without_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

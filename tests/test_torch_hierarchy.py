@@ -362,7 +362,20 @@ def test_cli_on_the_cpu_reruns_warm_from_its_store(tmp_path, monkeypatch,
     assert outs[1]["ground_truth_calls"]["total"] == 0
     assert outs[0]["front"] == outs[1]["front"]
     assert "verified front" in capsys.readouterr().out
+    # the process pool gives the thread backend's front
+    out = tmp_path / "p.json"
+    monkeypatch.setattr(sys, "argv", [
+        "dse_hier", "--device", "cpu", "--hw", "v5e", "--eval-backend",
+        "process", "--eval-workers", "1",
+        "--n-train", "8", "--generations", "1", "--pop", "8",
+        "--parents", "4", "--k-per-stage", "3", "--max-candidates", "4",
+        "--out", str(out)])
+    dse_hier.main()
+    proc = json.loads(out.read_text())
+    assert proc["front"] == outs[0]["front"]
+    assert proc["eval_backend"]["process_batches"] > 0
+    assert proc["eval_backend"]["process_fallbacks"] == 0
     with pytest.raises(SystemExit):
         monkeypatch.setattr(sys, "argv", ["dse_hier", "--eval-backend",
-                                          "process"])
+                                          "processes"])
         dse_hier.main()

@@ -264,8 +264,24 @@ def test_dse_lm_cli_in_process_warm_on_its_store(tmp_path, capsys):
     b = json.loads((tmp_path / "b.json").read_text())
     for k in ("front", "front_genomes", "val_pcc"):
         assert a[k] == b[k]
-    with pytest.raises(ValueError, match="item 4"):
-        dse_lm.main(["--device", "cpu", "--service", "http://localhost:1"])
+    # --service posts the same search to a campaign service instead
+    from repro_torch.service import CampaignManager
+    from repro_torch.service.api import make_server
+
+    mgr = CampaignManager(eval_workers=2, campaign_workers=1, device="cpu")
+    srv = make_server(mgr, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        res = dse_lm.main(common[:-2] + [
+            "--service", f"http://127.0.0.1:{srv.server_address[1]}",
+            "--out", str(tmp_path / "c.json")])
+    finally:
+        srv.shutdown()
+        mgr.shutdown()
+    remote = capsys.readouterr().out
+    assert "remote" in remote and res["state"] == "done"
+    c = json.loads((tmp_path / "c.json").read_text())
+    assert c["front"] == res["front"] and len(c["front_genomes"]) > 0
 
 
 @pytest.mark.parametrize("tier", ["exact", "balanced", "budget"])

@@ -13,8 +13,10 @@ CPU, against the JAX package's:
 * two concurrent campaigns share labels and give ``run_dse``'s front; a
   warm store pays no ground truth;
 * ``lm:<arch>`` campaigns run on the manager's device;
-* each backend and tier the port does not carry yet raises
-  ``ValueError`` naming its ROADMAP item.
+* the process and fleet backends and the serving hub run on the CPU
+  (their own tests: ``tests/test_torch_workers.py``,
+  ``test_torch_fleet.py``, ``test_torch_serving.py``); an unknown
+  backend raises.
 
 Every genome is drawn from a numpy seed."""
 
@@ -335,15 +337,38 @@ def test_submit_validates_spec_upfront():
 
 
 # ---------------------------------------------------------------------------
-# what the port does not carry yet
+# the backends and the serving tier (once unported, now run on the CPU)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("backend", ["process", "fleet"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(ValueError, match="item 4"):
-        EvalScheduler(InMemoryLabelStore(), backend=backend)
-    with pytest.raises(ValueError, match="item 4"):
-        CampaignManager(eval_backend=backend)
+    """Both backends now run: the process pool labels in its children,
+    an empty fleet falls back to the thread backend and counts it; the
+    labels equal ground truth on the manager's device."""
+    sched = EvalScheduler(InMemoryLabelStore(), backend=backend,
+                          process_workers=1, device="cpu", max_wait_s=0.0)
+    try:
+        ctx = EvalContext(MCMAccelerator(1), LIB, n_qor_samples=2,
+                          device="cpu")
+        g = _genomes(ctx.accel, 4, seed=8)
+        out = sched.label(ctx, g)
+        want = ctx.ground_truth(g)
+        for k in ("qor", "energy", "latency", "flops", "hbm_bytes"):
+            assert out[k].tobytes() == want[k].tobytes()
+        s = sched.stats()
+        assert s["backend"] == backend
+        if backend == "process":
+            assert s["process_batches"] == 1 and s["labeler"]["labeled"] == 4
+        else:
+            assert s["fleet_fallbacks"] == 1 and s["fleet"]["live"] == 0
+    finally:
+        sched.shutdown()
+    mgr = CampaignManager(eval_backend=backend, process_workers=1,
+                          device="cpu")
+    try:
+        assert mgr.stats()["scheduler"]["backend"] == backend
+    finally:
+        mgr.shutdown()
 
 
 def test_unknown_backend_raises():
@@ -388,9 +413,17 @@ def test_lm_campaign_on_the_manager():
 
 
 def test_serving_tier_raises():
+    """The serving hub exists now; before any campaign produced a front,
+    serving an accelerator raises ``NoFrontError`` (HTTP 409)."""
+    from repro_torch.serving import NoFrontError, ServingHub
+
     mgr = CampaignManager(eval_workers=1, campaign_workers=1, device="cpu")
     try:
-        with pytest.raises(ValueError, match="item 4"):
-            mgr.serving
+        assert isinstance(mgr.serving, ServingHub)
+        assert mgr.serving is mgr.serving
+        with pytest.raises(NoFrontError):
+            mgr.serving.engine_for("mcm2")
+        assert mgr.serving_stats() == {"engines": {}}
+        assert mgr.stats()["serving"] == {"engines": {}}
     finally:
         mgr.shutdown()
