@@ -17,7 +17,8 @@ Phases, one JSON object per line on standard output:
    rtol 1e-5, atol 0.5, with TF32 off; flash attention in float32 on the
    CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
    tensor-core kernel (head dim 64 and 128, ragged and shifted-causal
-   rows included) within one bf16 rounding of the output; selective_scan
+   rows included) within one bf16 rounding of the output, at the
+   prefill shape of every served arch; selective_scan
    within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at b * di > 4096,
    ragged edges of both kernels' tiling included), both timed with CUDA
    events, and where one PyTorch call computes the same function (the
@@ -65,12 +66,23 @@ Phases, one JSON object per line on standard output:
    object on the same path and the same batch, which must launch no
    rank_k, pay no run, answer each unique variant from the identity
    tier and give labels equal to the cold ones.
-7. ``figs``    — the paper's figure families.  Fig. 5 on ``mcm1``: 1000
+7. ``figs``    — the paper's figure families.  Fig. 1 on
+   ``gaussian3x3`` (``benchmarks/fig1_motivation.py``): 1000 variants'
+   QoR through ``qor_batch`` and their deployment energy on the H100 cost
+   model through ``synthesize_batch`` (rank_k once a run paid), and the
+   share of the (QoR, ASIC area proxy) front that is off the (QoR,
+   energy) front.  Fig. 6 (``benchmarks/fig6_models.py``) on
+   ``mcm1``…``mcm4``: random forest, Bayesian ridge and SVR fitted on
+   pipeline D's features of 1000 training genomes, their PCC on 1000
+   test genomes for QoR and energy (mcm1 on Fig. 5's labels, the other
+   rows labeled on the card); a model that is singular or predicts
+   non-finite values is printed with its reason.  Fig. 5 on ``mcm1``: 1000
    training and 1000 test genomes labeled on the card, every
    multiplier's per-circuit deployment (pipelines B/E's features) on
    the card against the CPU's, then the six pipelines' PCC, time per
    variant and hours for 10^6 variants, with the claims ``D_fast`` and
-   ``D_accurate``.  Figs. 8/9 on ``FIGS_ROWS``: ``run_dse`` against
+   ``D_accurate``.  Figs. 8/9 on ``FIGS_ROWS``, one spawned process a
+   row on the card, all at once: ``run_dse`` against
    ``approxfpgas_search`` and ``random_search`` at the synthesis budget
    n_train + n_parents, their hypervolume ratios, and each front held
    against a CPU re-label through a fresh cache.  Fig. 7 from the
@@ -115,21 +127,33 @@ Phases, one JSON object per line on standard output:
    the DSE's first input held against the accelerator's for that genome
    within one bf16 rounding.  Then 8 random genomes of falcon-mamba-7b
    at full width (64 layers) are labeled: selective_scan launched 64
-   times per forward.
-10. ``serve_granite-8b``, ``serve_granite-8b_approx``,
-   ``serve_falcon-mamba-7b`` — the LM serving path at full width and
-   depth, one model at a time (freed before the next): weights drawn from
-   the seed on the card, then ``serve_batch(cfg, batch=8, prompt_len=1024,
-   gen=32)``.  In one more prefill every layer's kernel call is held
-   against the plain version on that layer's own inputs (the kernel
-   rows' tolerance); granite's bf16 attention runs the tensor-core
-   kernel.  The prefill's last-position logits with the kernels are held
-   against the same model with the plain attention /
-   scan, within max(0.12, 2 x the spread that the JAX model code's own
-   chunked form of the function shows against the plain one in the same
-   run; see ``LOGITS_TOL``), and the greedy tokens of both are compared.
-   A profiled prefill and 4 decode steps give device time, the kernel's
-   share and the decode's launches and idle share.  The ``_approx`` phase
+   times per forward.  Then ``run_dse`` on granite-moe-3b-a800m at full
+   width and depth (32 MoE layers, 40 experts padded to 48, top-8) with
+   the same settings and gates (flash_attention_sm90 32 times a
+   forward), and two genomes that differ only in their
+   ``expert_in``/``expert_out`` genes: equal QoR, flops and bytes,
+   different energy (no policy reaches the experts).
+10. ``serve_<arch>`` for each of ``SERVE_ARCHS`` (granite-8b, also
+   ``serve_granite-8b_approx``; falcon-mamba-7b, gemma-2b, chatglm3-6b,
+   deepseek-67b, granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b) — the LM
+   serving path at full width and depth (deepseek-67b and phi3.5-moe at
+   the depth of ``SERVE_DEPTH``, in the line's ``reduced``), one model at
+   a time (freed before the next): weights drawn from the seed on the
+   card, then ``serve_batch(cfg, batch=8, prompt_len=1024, gen=32)``,
+   the attention kernel launched once an attention layer (gemma's head
+   dim 256 on the CUDA-core kernel, the others' on the tensor-core one).
+   The checks run on the first ``SERVE_CHECK_LAYERS`` layers of the same
+   model (an MoE arch's routing every token to every real expert, so
+   that a rounding cannot swap a token's experts; the timed request
+   keeps the published top-k and capacity): in one more prefill every layer's kernel call is held against
+   the plain version on that layer's own inputs (the kernel rows'
+   tolerance); the prefill's last-position logits with the kernels are
+   held against the plain attention / scan, within max(0.12, 2 x the
+   spread that the JAX model code's own chunked form of the function
+   shows against the plain one in the same run; see ``LOGITS_TOL``), and
+   the greedy tokens of both are compared.  A profiled prefill and 4
+   decode steps of the whole model give device time, the kernel's share
+   and the decode's launches and idle share.  The ``_approx`` phase
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
    at rank 3.
 11. ``service`` — the campaign service's HTTP front end
@@ -170,9 +194,11 @@ run, each hier run, the LM's dse, its served tier and falcon's labels,
 each serve, each service campaign and request set) and read just after;
 the process pool's children and the fleet's workers count their own
 launches and report them with each chunk's labels, and those reports
-are what the service phase reads.  A kernel of the
+are what the service phase reads; so does each Figs. 8/9 row's process,
+with its line.  A kernel of the
 phase's main path (``MAIN_PATH``) that the phase did not launch, or did
-not launch once per layer for the serve phases, fails the run.  ``lut_matmul`` and
+not launch once per attention (or Mamba) layer for the serve phases,
+fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
 which the labels do not run; their rows in phase 3 hold them against
 their plain version.
@@ -241,6 +267,18 @@ LOGITS_TOL = 0.12
 LOGITS_SPREAD_FACTOR = 2.0
 
 SERVE = dict(batch=8, prompt_len=1024, gen=32)
+# the archs the serve phases run, in order; the timed request runs at
+# full width and at the depth of SERVE_DEPTH where one is given (the
+# published depth does not fit one 80 GB card in bf16: deepseek-67b's
+# 95 layers are 1.38 GB each, phi3.5-moe's 32 are 2.6 GB each)
+SERVE_ARCHS = ("granite-8b", "falcon-mamba-7b", "gemma-2b", "chatglm3-6b",
+               "deepseek-67b", "granite-moe-3b-a800m",
+               "phi3.5-moe-42b-a6.6b")
+SERVE_DEPTH = {"deepseek-67b": 44, "phi3.5-moe-42b-a6.6b": 26}
+# the serve phases' checks (kernel against plain prefill, each layer's
+# kernel call, the JAX form's spread, the plain route's greedy tokens) run
+# on the first SERVE_CHECK_LAYERS layers of the same model
+SERVE_CHECK_LAYERS = 4
 
 # flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label);
 # float32 and bf16 at d = 256 run the CUDA-core kernel, bf16 at d = 64
@@ -263,6 +301,18 @@ FLASH_CASES = [
     (1, 4, 4, 256, 256, 64, 0, "bfloat16", "head dim 64"),
     (1, 8, 8, 512, 512, 256, 0, "bfloat16",
      "head dim 256 (CUDA-core route)"),
+    # the prefills of the serve phases' other archs (phi3.5-moe's is
+    # granite-8b's shape)
+    (8, 8, 1, 1024, 1024, 256, 0, "bfloat16",
+     "gemma-2b prefill, MQA, head dim 256 (CUDA-core route)"),
+    (8, 32, 2, 1024, 1024, 128, 0, "bfloat16",
+     "chatglm3-6b prefill, GQA 32/2"),
+    (8, 64, 8, 1024, 1024, 128, 0, "bfloat16",
+     "deepseek-67b prefill, GQA 64/8"),
+    (8, 24, 8, 1024, 1024, 64, 0, "bfloat16",
+     "granite-moe-3b prefill, GQA 24/8, head dim 64"),
+    (2, 24, 8, 32, 32, 64, 0, "bfloat16",
+     "granite-moe-3b LM DSE forward (b 2, s 32)"),
 ]
 # selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
 # falcon-mamba-7b's prefill at the serving batch, then ragged edges of the
@@ -293,6 +343,12 @@ MAIN_PATH = {
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
+    # gemma's head dim 256 takes the CUDA-core kernel (ops.KERNEL_ROUTES)
+    "serve_gemma-2b": ("flash_attention",),
+    "serve_chatglm3-6b": ("flash_attention_sm90",),
+    "serve_deepseek-67b": ("flash_attention_sm90",),
+    "serve_granite-moe-3b-a800m": ("flash_attention_sm90",),
+    "serve_phi3.5-moe-42b-a6.6b": ("flash_attention_sm90",),
     "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
 # rank_k launches of one variant's deployment graph (``build_deploy``):
@@ -312,6 +368,8 @@ PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
 # features of mcm1's 1000 training labels; see the figs line's
 # ``reduced``)
 FIG5_TRAIN = FIG5_TEST = 1000
+# Fig. 1's gaussian3x3 variants (the JAX package's benchmark: 120)
+FIG1_VARIANTS = 1000
 FIGS_ROWS = (0, 1, 2, 3)
 # 25 until the service phase joined the script; cut to keep the whole
 # run near 950 s (each generation at pop 1000 costs 0.15-0.4 s of host
@@ -1511,7 +1569,7 @@ def _fig5(lib, seed: int, total: dict) -> dict:
                          for p, r in reports.items()},
            "claim_D_fast": claim_fast, "claim_D_accurate": claim_accurate}
     emit(out)
-    return out
+    return out, (g, labels)
 
 
 def _relabel_front(acc, lib, genomes, obj, what: str) -> None:
@@ -1530,19 +1588,23 @@ def _relabel_front(acc, lib, genomes, obj, what: str) -> None:
           f"{what}: front objectives differ from a cpu re-label")
 
 
-def _fig89(lib, row: int, seed: int, total: dict) -> dict:
+def _fig89(row: int, seed: int) -> dict:
     """Figs. 8/9 on one MCM row: ``run_dse`` against ``approxfpgas_search``
     and ``random_search`` at its synthesis budget, n_train + n_parents;
-    hypervolume ratios over a common reference point."""
+    hypervolume ratios over a common reference point.  Run in a spawned
+    process of its own (``_fig89_rows``): the line, with the launches
+    this process made, is returned, not printed."""
     import numpy as np
 
     from repro_torch import _build
     from repro_torch.accel import MCMAccelerator
     from repro_torch.accel.approxfpgas import approxfpgas_search
+    from repro_torch.core.acl.library import default_library
     from repro_torch.core.dse import DSEConfig, random_search, run_dse
     from repro_torch.core.nsga2 import NSGA2Config
     from repro_torch.core.pareto import hypervolume_2d
 
+    lib = default_library()
     acc = MCMAccelerator(row)
     cfg = DSEConfig(
         n_train=1000, n_qor_samples=4, hw_model=FIGS_HW_MODEL,
@@ -1563,7 +1625,6 @@ def _fig89(lib, row: int, seed: int, total: dict) -> dict:
                                              seed=seed + 1, device="cuda")
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
-    _add_launches(total, launches)
     what = f"figs fig89 {acc.name}"
     fronts = {"ours": (ours.front_genomes, ours.front_objectives, lib),
               "approxfpgas": (soa_g[soa_mask], soa_obj[soa_mask], rlib),
@@ -1591,8 +1652,27 @@ def _fig89(lib, row: int, seed: int, total: dict) -> dict:
            "wall_s": {"run_dse": t1 - t0, "approxfpgas": t2 - t1,
                       "random": t3 - t2},
            "val_pcc": ours.val_pcc, "launches": launches}
-    emit(out)
     return out
+
+
+def _fig89_rows(seed: int, total: dict) -> list:
+    """Figs. 8/9 on each row of ``FIGS_ROWS``, one spawned process a row
+    on the card, all at once: each row's time is mostly its surrogate
+    fits on the host, and the rows are independent and deterministic.
+    Each line is printed here, its launches added to ``total``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(FIGS_ROWS), mp_context=ctx) as pool:
+        lines = list(pool.map(_fig89, FIGS_ROWS,
+                              [seed] * len(FIGS_ROWS)))
+    wall = time.perf_counter() - t0
+    for out in lines:
+        _add_launches(total, out["launches"])
+        emit({**out, "rows_wall_s": wall})
+    return lines
 
 
 def _fig7(res) -> dict:
@@ -1619,6 +1699,179 @@ def _fig7(res) -> dict:
     return out
 
 
+def _sync(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _asic_cost_proxy(circuits) -> float:
+    """Fig. 1's ASIC-style area proxy: partial-product rows times 8 for a
+    multiplier, the carry window for an adder (smaller logic, cheaper)."""
+    return float(sum(c.carry_window if c.kind == "add16" else c.pp_rows * 8
+                     for c in circuits))
+
+
+def _fig1(lib, seed: int, total: dict, *, n_variants: int = FIG1_VARIANTS,
+          qor_samples: int = 2, device="cuda", hw=None) -> dict:
+    """Fig. 1 (``benchmarks/fig1_motivation.py``) on gaussian3x3: the
+    share of the variants on the Pareto front of (QoR, ASIC area proxy)
+    that are off the front of (QoR, deployment energy on ``hw``).  QoR
+    through ``qor_batch`` (the population gather), energy through one
+    ``synthesize_batch`` of the variants (rank_k once a run paid)."""
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.accel import GaussianFilter
+    from repro_torch.core.features import synth
+    from repro_torch.core.hw import H100_SXM, hw_name
+    from repro_torch.core.pareto import non_dominated_mask
+
+    hw = H100_SXM if hw is None else hw
+    acc = GaussianFilter()
+    rng = np.random.default_rng(seed)
+    sizes = acc.gene_sizes(lib)
+    genomes = rng.integers(0, sizes[None, :], size=(n_variants, len(sizes)))
+    inputs = acc.sample_inputs(qor_samples, seed=123)
+    scache = synth.SynthCache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    qor = acc.qor_batch(genomes, lib, inputs, device=device)
+    variants = [acc.decode(g, lib) for g in genomes]
+    recs = synth.synthesize_batch(acc, variants, cache={}, synth_cache=scache,
+                                  device=device, hw=hw)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    _add_launches(total, launches)
+    energy = np.array([r["energy"] for r in recs])
+    asic = np.array([_asic_cost_proxy(c) for c, _ in variants])
+    runs_paid = scache.stats()["compiles"]
+    check(np.all(np.isfinite(qor)) and np.all(np.isfinite(energy)),
+          "figs fig1: labels not finite")
+    # on the CPU the plain versions run and no launch is counted
+    on_card = str(device).startswith("cuda")
+    want = DEPLOY_LAUNCHES[acc.name] * runs_paid if on_card else 0
+    check(launches["rank_k"] == want,
+          f"figs fig1: {launches['rank_k']} rank_k launches for {runs_paid} "
+          f"runs paid on {device}")
+    asic_idx = set(np.flatnonzero(non_dominated_mask(
+        np.stack([-qor, asic], axis=1))).tolist())
+    hw_idx = set(np.flatnonzero(non_dominated_mask(
+        np.stack([-qor, energy], axis=1))).tolist())
+    mismatch = len(asic_idx - hw_idx) / max(len(asic_idx), 1)
+    out = {"phase": "figs", "fig": 1, "accel": acc.name, "hw": hw_name(hw),
+           "n_variants": int(n_variants), "qor_samples": qor_samples,
+           "asic_front_size": len(asic_idx), "hw_front_size": len(hw_idx),
+           "pareto_mismatch_fraction": mismatch, "runs_paid": runs_paid,
+           "wall_s": wall, "launches": launches}
+    emit(out)
+    return out
+
+
+FIG6_MODELS = ("random_forest", "bayesian_ridge", "svr")
+# Fig. 6's 24 surrogate fits: spawned processes, one a core of the
+# one-card machine (8)
+FIG6_FIT_WORKERS = 8
+
+
+def _fig6_score(name, seed, X, y, n_train):
+    """(PCC on the test genomes, None) of one surrogate, or (None, the
+    reason) where the model is singular or predicts non-finite values."""
+    import numpy as np
+
+    from repro_torch.core.surrogates import make, pcc
+
+    try:
+        m = make(name, seed=seed).fit(X[:n_train], y[:n_train])
+        pred = m.predict(X[n_train:])
+    except np.linalg.LinAlgError as exc:
+        return None, f"singular: {exc}"
+    if not np.all(np.isfinite(pred)):
+        return None, (f"predicts non-finite values "
+                      f"({int((~np.isfinite(pred)).sum())} of {len(pred)})")
+    return pcc(y[n_train:], pred), None
+
+
+def _fig6(lib, seed: int, total: dict, *, n_train: int = FIG5_TRAIN,
+          n_test: int = FIG5_TEST, device="cuda", hw=None,
+          given=None) -> dict:
+    """Fig. 6 (``benchmarks/fig6_models.py``): the test PCC of random
+    forest, Bayesian ridge and SVR on pipeline D's features, for QoR and
+    energy, on mcm1-mcm4; each row's genomes drawn in turn from one
+    generator seeded with ``seed`` and labeled on ``device``.  ``given``,
+    ``(genomes, labels)`` of mcm1 labeled already at this size (Fig. 5's
+    on the card), takes the place of mcm1's draw and labels.  The 24 fits
+    are independent and deterministic, and run in ``FIG6_FIT_WORKERS``
+    spawned processes (the host's random-forest fits are most of the
+    figure's time)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.accel import MCMAccelerator
+    from repro_torch.core.features import synth
+    from repro_torch.core.features.pipelines import build_extractor
+    from repro_torch.core.hw import H100_SXM, hw_name
+
+    hw = H100_SXM if hw is None else hw
+    rng = np.random.default_rng(seed)
+    launches_all: dict = {}
+    tasks = []            # (row key, target, model, X, y)
+    t0 = time.perf_counter()
+    for row in range(4):
+        acc = MCMAccelerator(row)
+        sizes = acc.gene_sizes(lib)
+        genomes = rng.integers(0, sizes[None, :],
+                               size=(n_train + n_test, len(sizes)))
+        if row == 0 and given is not None:
+            genomes, labels = given
+        else:
+            _build.reset_launches()
+            labels = synth.label_variants(acc, genomes, lib, cache={},
+                                          synth_cache=synth.SynthCache(),
+                                          device=device, hw=hw)
+            _sync(device)
+            _add_launches(launches_all, dict(_build.LAUNCHES))
+        check(len(genomes) == n_train + n_test,
+              f"figs fig6 {acc.name}: {len(genomes)} genomes")
+        X = build_extractor("D", acc, lib, device=device, hw=hw)(genomes)
+        for target in ("qor", "energy"):
+            y = np.asarray(labels[target])
+            tasks += [(f"mcm{row + 1}", target, name, X, y)
+                      for name in FIG6_MODELS]
+    label_s = time.perf_counter() - t0
+    args = [(name, seed, X, y, n_train) for _, _, name, X, y in tasks]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(FIG6_FIT_WORKERS, mp_context=ctx) as pool:
+        results = list(pool.map(_fig6_score, *zip(*args)))
+    scores, errors, best = {}, {}, {"qor": {}, "energy": {}}
+    for (key, target, name, _, _), (v, why) in zip(tasks, results):
+        scores.setdefault(key, {}).setdefault(target, {})[name] = v
+        if why is not None:
+            errors[f"{key}.{target}.{name}"] = why
+    for key, per_target in scores.items():
+        for target, got in per_target.items():
+            ok = {k: v for k, v in got.items() if v is not None}
+            best[target][key] = max(ok, key=ok.get) if ok else None
+    _add_launches(total, launches_all)
+    out = {"phase": "figs", "fig": 6, "hw": hw_name(hw), "pipeline": "D",
+           "n_train": n_train, "n_test": n_test,
+           "mcm1_from_fig5": given is not None, "pcc": scores,
+           "not_scored": errors, "best": best,
+           "rf_wins_qor_of4": sum(v == "random_forest"
+                                  for v in best["qor"].values()),
+           "bayes_wins_energy_of4": sum(v == "bayesian_ridge"
+                                        for v in best["energy"].values()),
+           "label_s": label_s, "fit_workers": FIG6_FIT_WORKERS,
+           "wall_s": time.perf_counter() - t0, "launches": launches_all}
+    emit(out)
+    return out
+
+
 def phase_figs(seed: int, hevc_result=None) -> dict:
     """The paper's figure families on the card (module docstring, phase
     7).  Launch counts are set to 0 at the start and summed over the
@@ -1627,8 +1880,11 @@ def phase_figs(seed: int, hevc_result=None) -> dict:
 
     lib = default_library()
     total: dict = {}
-    lines = {"fig5": _fig5(lib, seed, total),
-             "fig89": [_fig89(lib, r, seed, total) for r in FIGS_ROWS]}
+    fig5, mcm1 = _fig5(lib, seed, total)
+    lines = {"fig1": _fig1(lib, seed, total),
+             "fig5": fig5,
+             "fig6": _fig6(lib, seed, total, given=mcm1),
+             "fig89": _fig89_rows(seed, total)}
     if hevc_result is not None:
         lines["fig7"] = _fig7(hevc_result)
     for k in MAIN_PATH["figs"]:
@@ -1639,9 +1895,17 @@ def phase_figs(seed: int, hevc_result=None) -> dict:
                               "run": [f"mcm{r + 1}" for r in FIGS_ROWS]},
                "fig89_n_generations": {"paper": 1000, "repo_default": 100,
                                        "run": FIGS_GENERATIONS},
+               "fig1_variants": {"repo_default": 120, "run": FIG1_VARIANTS},
+               "fig6_genomes": {"repo_default": [60, 30],
+                                "run": [FIG5_TRAIN, FIG5_TEST]},
                "hw_model": {"repo_default": "bayesian_ridge",
                             "run": FIGS_HW_MODEL}},
            "claims": {
+               "fig1_asic_pareto_off_the_hw_front": lines["fig1"][
+                   "pareto_mismatch_fraction"],
+               "fig6_rf_best_for_qor_of4": lines["fig6"]["rf_wins_qor_of4"],
+               "fig6_bayes_best_for_energy_of4": lines["fig6"][
+                   "bayes_wins_energy_of4"],
                "D_fast": lines["fig5"]["claim_D_fast"],
                "D_accurate": lines["fig5"]["claim_D_accurate"],
                "hv_ratio_vs_approxfpgas_ge_1": {
@@ -1936,7 +2200,7 @@ def _per_layer_check(model, prompts, kernel: str) -> dict:
     from repro_torch.train.serve import make_prefill_step
 
     worst, differ, total = 0.0, 0, 0
-    if kernel == "flash_attention_sm90":
+    if kernel.startswith("flash_attention"):
         mod, attr = attn_mod, "attn_op"
         compare = _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL)
     else:
@@ -1979,6 +2243,7 @@ def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
     from repro_torch.train.serve import make_decode_step, make_prefill_step
 
     kname = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
+             "flash_attention": "flash_fwd_kernel",
              "selective_scan": "selective_scan_kernel"}[kernel]
     b, L = prompts.shape
     caches = model.init_caches(b, L + steps + 1)
@@ -2013,8 +2278,68 @@ def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
     }
 
 
+def _prefix_model(model, n_layers: int):
+    """The first ``n_layers`` layers of ``model`` as a model of their own:
+    the same parameters (no copy), a config of that depth.  Its MoE
+    layers route every token to every real expert, with a slot for each
+    in every expert: the layer's output is then continuous in its input.
+    With top-k routing, one rounding can swap a token's k-th expert for
+    another (and, under a binding capacity, the slots of every later
+    token of that expert): the logits jump, by up to 6.4 on phi3.5-moe,
+    and the kernel-vs-plain logits would say more of the router than of
+    the kernel."""
+    import copy
+    from dataclasses import replace
+
+    from torch import nn
+
+    cfg = model.cfg
+    if cfg.n_experts:
+        # cap = int(s * (padded + 1) / padded) >= s
+        cfg = replace(cfg, n_experts_active=cfg.n_experts,
+                      capacity_factor=(cfg.padded_experts + 1)
+                      / cfg.n_experts)
+    if n_layers >= cfg.n_layers and cfg is model.cfg:
+        return model
+    pattern = len(cfg.block_pattern)
+    n_layers = min(cfg.n_layers, max(pattern, n_layers - n_layers % pattern))
+    layers = []
+    for layer in list(model.layers)[:n_layers]:
+        if hasattr(layer, "moe"):
+            moe = copy.copy(layer.moe)
+            moe.cfg = cfg
+            layer = copy.copy(layer)
+            layer._modules = dict(layer._modules, moe=moe)
+        layers.append(layer)
+    part = copy.copy(model)
+    part._modules = dict(model._modules)
+    part.layers = nn.ModuleList(layers)
+    part.cfg = replace(cfg, n_layers=n_layers)
+    return part
+
+
+def _serve_widths(cfg) -> dict:
+    if cfg.family == "ssm":
+        return {"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+                "dt_rank": cfg.resolved_dt_rank}
+    out = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "mlp_act": cfg.mlp_act, "rope_style": cfg.rope_style,
+           "tie_embeddings": cfg.tie_embeddings}
+    if cfg.n_experts:
+        out.update(n_experts=cfg.n_experts,
+                   padded_experts=cfg.padded_experts,
+                   top_k=cfg.n_experts_active,
+                   capacity_factor=cfg.capacity_factor)
+    return out
+
+
 def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
-    """Serve ``arch`` at full width and depth on the card; free it after."""
+    """Serve ``arch`` at full width (and full depth unless ``SERVE_DEPTH``
+    cuts it) on the card; the checks on its first ``SERVE_CHECK_LAYERS``
+    layers; free it after."""
+    from dataclasses import replace
+
     import torch
 
     from repro_torch import _build
@@ -2024,7 +2349,16 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     from repro_torch.train.serve import make_prefill_step
 
     name = f"serve_{arch}" + ("_approx" if approx else "")
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = published
+    cut = None
+    if arch in SERVE_DEPTH:
+        cfg = replace(published, n_layers=SERVE_DEPTH[arch])
+        cut = {"n_layers": {"published": published.n_layers,
+                            "run": cfg.n_layers},
+               "why": "the published depth's bf16 weights "
+                      f"({published.param_count() * 2 / 1e9:.1f} GB) do not "
+                      "fit one 80 GB card"}
     policy = None
     if approx:
         policy = ApproxPolicy({"ffn_in": ("mul8s_mitchell", 3),
@@ -2057,19 +2391,26 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     check(torch.equal(tokens[:, :L].cpu(), prompts.to(torch.int32)),
           f"{name}: prompt not carried into the tokens")
     kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
-    n_layers = {"flash_attention_sm90": sum(k.mixer == "attn"
-                                            for k in kinds),
+    n_attn = sum(k.mixer == "attn" for k in kinds)
+    n_layers = {"flash_attention_sm90": n_attn, "flash_attention": n_attn,
                 "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
     for k in MAIN_PATH[name]:
         check(launches[k] == n_layers[k],
               f"{name}: {k} launched {launches[k]} times in one request, "
               f"not once for each of the {n_layers[k]} layers that run it")
+    aux = (float(model.last_aux) if cfg.n_experts else None)
+    if cfg.n_experts:
+        check(0 < aux < float("inf"),
+              f"{name}: the MoE load-balance loss is {aux}")
 
-    # kernel route against the plain route, same model and prompts
+    # the checks, on the first layers of the same model: kernel route
+    # against the plain route, same prompts
+    part = _prefix_model(model, SERVE_CHECK_LAYERS)
+    t_check = time.perf_counter()
     logits = {}
     for impl in ("kernel", "plain"):
-        caches = model.init_caches(b, L)
-        lg, _ = make_prefill_step(model, impl=impl)(prompts.cuda(), caches)
+        caches = part.init_caches(b, L)
+        lg, _ = make_prefill_step(part, impl=impl)(prompts.cuda(), caches)
         del caches
         logits[impl] = lg.float()
     torch.cuda.synchronize()
@@ -2077,57 +2418,57 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
           f"{name}: prefill logits not finite")
     err = float((logits["kernel"] - logits["plain"]).abs().max())
     kernel = MAIN_PATH[name][0]
-    layers = _per_layer_check(model, prompts.cuda(), kernel)
+    layers = _per_layer_check(part, prompts.cuda(), kernel)
     # the same prefill with the JAX model code's own form of the function
     # (plain route otherwise): how far the reference's two forms of it
     # move these logits, measured on this model and these prompts
     import repro_torch.models.attention as attn_mod
     import repro_torch.models.ssm as ssm_mod
 
-    mod, attr, form = {
-        "flash_attention_sm90": (attn_mod, "attn_op",
-                                 _chunked_form_attention),
-        "selective_scan": (ssm_mod, "selective_scan", _chunked_form_scan),
-    }[kernel]
+    mod, attr, form = ((ssm_mod, "selective_scan", _chunked_form_scan)
+                       if kernel == "selective_scan" else
+                       (attn_mod, "attn_op", _chunked_form_attention))
     orig = getattr(mod, attr)
     setattr(mod, attr, form)
     try:
-        lg, _ = make_prefill_step(model, impl="plain")(
-            prompts.cuda(), model.init_caches(b, L))
+        lg, _ = make_prefill_step(part, impl="plain")(
+            prompts.cuda(), part.init_caches(b, L))
     finally:
         setattr(mod, attr, orig)
     spread = float((lg.float() - logits["plain"]).abs().max())
     del lg
     tol = max(LOGITS_TOL, LOGITS_SPREAD_FACTOR * spread)
-    emit({"phase": name + "_diagnostics", "logits_kernel_vs_plain": err,
-          "per_layer": layers, "logits_chunked_form_vs_plain": spread,
-          "logits_tolerance": tol})
+    emit({"phase": name + "_diagnostics", "check_layers": part.cfg.n_layers,
+          "check_moe_top_k": part.cfg.n_experts_active,
+          "logits_kernel_vs_plain": err, "per_layer": layers,
+          "logits_chunked_form_vs_plain": spread, "logits_tolerance": tol})
     check(err <= tol, f"{name}: kernel vs plain prefill logits differ "
                       f"by {err:.4g} (tolerance {tol:.4g})")
-    plain_tokens, _ = serve_batch(cfg, batch=b, prompt_len=L, gen=gen,
-                                  policy=policy, prompts=prompts, model=model,
+    k_tokens, _ = serve_batch(part.cfg, batch=b, prompt_len=L, gen=gen,
+                              policy=policy, prompts=prompts, model=part)
+    plain_tokens, _ = serve_batch(part.cfg, batch=b, prompt_len=L, gen=gen,
+                                  policy=policy, prompts=prompts, model=part,
                                   impl="plain")
-    agree = float((tokens[:, L:] == plain_tokens[:, L:]).float().mean())
+    agree = float((k_tokens[:, L:] == plain_tokens[:, L:]).float().mean())
+    check_s = time.perf_counter() - t_check
     prof = _profile_request(model, prompts.cuda(), MAIN_PATH[name][0])
     out = {
         "phase": name, "arch": arch, "n_layers": cfg.n_layers,
-        "d_model": cfg.d_model,
-        "widths": ({"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-                    "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff}
-                   if cfg.family != "ssm" else
-                   {"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-                    "dt_rank": cfg.resolved_dt_rank}),
+        "d_model": cfg.d_model, "widths": _serve_widths(cfg),
         "vocab": cfg.padded_vocab, **SERVE,
         "policy": ({"ffn_in": ["mul8s_mitchell", 3],
                     "ffn_out": ["mul8s_mitchell", 3]} if approx else None),
-        "reduced": None,
+        "reduced": cut,
         "param_bytes": model.param_bytes(), "init_s": init_s,
         "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
         "decode_tokens_per_s": tps, "wall_s": wall,
         "max_memory_allocated": peak,
+        "moe_aux_loss": aux,
         "launches": launches,
         "launches_per_layer": {k: launches[k] / n_layers[k]
                                for k in MAIN_PATH[name]},
+        "check_layers": part.cfg.n_layers, "check_s": check_s,
+        "check_moe_top_k": part.cfg.n_experts_active or None,
         "logits_kernel_vs_plain_max_abs": err,
         "per_layer_kernel_vs_plain": layers,
         "logits_chunked_form_vs_plain_max_abs": spread,
@@ -2135,7 +2476,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
         "greedy_tokens_agree": agree,
         "profile": prof,
     }
-    del model, logits
+    del model, part, logits
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -2185,35 +2526,25 @@ def _lm_front_qor(acc, lib, genomes, inputs, form: str):
         attn_mod.attn_op = orig
 
 
-def phase_lm_dse(seed: int) -> dict:
-    """The paper's DSE on granite-8b at full width and depth, the budget
-    tier of its front served, then falcon-mamba-7b's labels (module
-    docstring, phase 9); each model freed before the next."""
-    import os
-    import tempfile
-
+def _lm_dse_run(acc, lib, seed: int, what: str) -> dict:
+    """``run_dse`` on the LM accelerator ``acc`` at ``LM_DSE`` through a
+    fresh ``SynthCache``, and its gates: the attention kernel launched
+    once a layer a forward, one deployment forward a run paid, every
+    label's energy the host's ``adjusted_compute``, the exact genome at
+    the cap, the front's QoR with the kernels against the plain
+    attention's.  Returns what the phase line reports."""
     import numpy as np
     import torch
 
     from repro_torch import _build
-    from repro_torch.accel import LMAccelerator
-    from repro_torch.configs import get_config
-    from repro_torch.core.acl.library import default_library
-    from repro_torch.core.dse import DSEConfig, default_labeler, run_dse
+    from repro_torch.core.dse import DSEConfig, run_dse
     from repro_torch.core.features import synth
     from repro_torch.core.hw import H100_SXM
     from repro_torch.core.nsga2 import NSGA2Config
     from repro_torch.core.qor import PSNR_CAP
-    from repro_torch.launch.serve import (
-        build_model, policy_from_front, serve_batch,
-    )
-    from repro_torch.serving import FrontCatalog
-    from repro_torch.train.serve import make_prefill_step
+    from repro_torch.kernels.flash_attention import kernel_route
 
-    lib = default_library()
-    total: dict = {}
-    cfg = get_config("granite-8b")
-    acc = LMAccelerator(cfg, use_reduced=False, seed=seed, device="cuda")
+    cfg = acc.cfg
     w = LM_DSE
     dcfg = DSEConfig(pipeline="D", strategy="nsga2", n_train=w["n_train"],
                      n_qor_samples=w["n_qor_samples"], seed=seed,
@@ -2237,34 +2568,34 @@ def phase_lm_dse(seed: int) -> dict:
     forwards = dict(acc.forwards)
     n_fwd = sum(forwards.values())
     stats = scache.stats()
-    _add_launches(total, launches)
 
-    layers = cfg.n_layers
-    check(launches["flash_attention_sm90"] == layers * n_fwd,
-          f"lm_dse: flash_attention_sm90 launched "
-          f"{launches['flash_attention_sm90']} times for {n_fwd} forwards of "
-          f"{layers} layers")
+    layers = sum(k.mixer == "attn" for k in cfg.block_pattern) * (
+        cfg.n_superblocks)
+    route = kernel_route(torch.bfloat16, cfg.resolved_head_dim)
+    check(launches[route] == layers * n_fwd,
+          f"{what}: {route} launched {launches[route]} times for {n_fwd} "
+          f"forwards of {layers} attention layers")
     check(launches["selective_scan"] == 0 and launches["rank_k"] == 0,
-          f"lm_dse: granite launched {launches}")
+          f"{what}: launched {launches}")
     check(forwards["deploy"] == stats["compiles"],
-          f"lm_dse: {forwards['deploy']} deploy forwards, "
+          f"{what}: {forwards['deploy']} deploy forwards, "
           f"{stats['compiles']} synthesis runs paid")
     g_all, l_all = res.search.genomes, res.final_labels
     front_g, front_o = res.front_genomes, res.front_objectives
     check(len(front_g) > 0 and np.all(np.isfinite(front_o)),
-          "lm_dse: front empty or not finite")
+          f"{what}: front empty or not finite")
     for k in ("qor", "energy", "latency", "flops", "hbm_bytes"):
-        check(np.all(np.isfinite(l_all[k])), f"lm_dse: label {k} not finite")
+        check(np.all(np.isfinite(l_all[k])), f"{what}: label {k} not finite")
     # energy: bit for bit the host's adjusted_compute of each genome
     for g, e in zip(g_all, l_all["energy"]):
         check(_lm_energy(acc, lib, g, H100_SXM) == e,
-              f"lm_dse: energy of {g.tolist()} differs from the host's "
+              f"{what}: energy of {g.tolist()} differs from the host's "
               "adjusted_compute")
     inputs = acc.sample_inputs(w["n_qor_samples"], seed=synth.DEFAULT_QOR_SEED)
     exact = acc.exact_genome(lib)
     exact_qor = float(acc.qor_batch(exact[None], lib, inputs)[0])
     check(exact_qor == PSNR_CAP,
-          f"lm_dse: the exact genome's QoR is {exact_qor}, not {PSNR_CAP}")
+          f"{what}: the exact genome's QoR is {exact_qor}, not {PSNR_CAP}")
     # the front's QoR against the plain attention, and the spread of the
     # JAX model code's form against the plain one on the same designs
     t1 = time.perf_counter()
@@ -2275,9 +2606,101 @@ def phase_lm_dse(seed: int) -> dict:
     err = float(np.max(np.abs(q_kernel - q_plain)))
     spread = float(np.max(np.abs(q_chunk - q_plain)))
     tol = max(LM_QOR_TOL_DB, LOGITS_SPREAD_FACTOR * spread)
-    check(err <= tol, f"lm_dse: front QoR with the kernels differs from the "
+    check(err <= tol, f"{what}: front QoR with the kernels differs from the "
                       f"plain attention's by {err:.4g} dB (tolerance "
                       f"{tol:.4g})")
+    line = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": acc.batch, "seq": acc.seq,
+        **w, "pipeline": "D", "strategy": "nsga2", "reduced": None,
+        "wall_s": wall, "timings_s": res.timings, "val_pcc": res.val_pcc,
+        "labels": int(len(np.unique(g_all, axis=0))),
+        "forwards": forwards, "synth_cache": stats,
+        "qor_s_per_forward": (float(l_all["sim_time"].sum())
+                              / max(forwards["qor"] + forwards["exact"], 1)),
+        "synth_s_per_run": (float(l_all["synth_time"].sum())
+                            / max(stats["compiles"], 1)),
+        "front_size": int(len(front_g)),
+        "front_qor_range": [float(q_kernel.min()), float(q_kernel.max())],
+        "front_qor_kernel_vs_plain_max_abs_db": err,
+        "front_qor_chunked_form_vs_plain_max_abs_db": spread,
+        "front_qor_tolerance_db": tol, "resim_s": resim_s,
+        "exact_qor": exact_qor,
+        "max_memory_allocated": peak, "param_bytes": acc.model.param_bytes(),
+        "launches": launches,
+    }
+    return {"res": res, "line": line, "inputs": inputs}
+
+
+def _lm_expert_pair(acc, lib, genome, what: str) -> dict:
+    """Two genomes that differ only in their expert genes (a circuit
+    deployed with a correction rank against the exact one), labeled on
+    the card: no policy reaches the experts, so QoR, flops and bytes are
+    equal and energy differs, as in the JAX package."""
+    import numpy as np
+
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+
+    ex = [i for i, s in enumerate(acc.slots)
+          if s.name in ("expert_in", "expert_out")]
+    check(len(ex) == 2, f"{what}: {len(ex)} expert slots")
+    muls = lib.kind("mul8s")
+    ranked = next(i for i, c in enumerate(muls) if c.deploy_rank > 0)
+    pair = np.stack([np.asarray(genome, dtype=np.int64)] * 2)
+    pair[0, ex] = ranked
+    pair[1, ex] = lib.exact_index("mul8s")
+    labels, wall, launches = _label_once(default_labeler(
+        acc, lib, n_qor_samples=LM_DSE["n_qor_samples"],
+        synth_cache=synth.SynthCache(), device="cuda"), pair)
+    for k in ("qor", "flops", "hbm_bytes"):
+        check(labels[k][0] == labels[k][1],
+              f"{what}: expert genes moved {k}: {labels[k].tolist()}")
+    check(labels["energy"][0] != labels["energy"][1],
+          f"{what}: expert genes did not move energy")
+    return {"genomes": pair.tolist(),
+            "circuits": [muls[ranked].name, muls[lib.exact_index('mul8s')].name],
+            "qor": labels["qor"].tolist(),
+            "energy": labels["energy"].tolist(), "wall_s": wall,
+            "launches": launches}
+
+
+def phase_lm_dse(seed: int) -> dict:
+    """The paper's DSE on granite-8b at full width and depth, the budget
+    tier of its front served, falcon-mamba-7b's labels, then the DSE on
+    granite-moe-3b (module docstring, phase 9); each model freed before
+    the next."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.accel import LMAccelerator
+    from repro_torch.configs import get_config
+    from repro_torch.core.acl.library import default_library
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.qor import PSNR_CAP
+    from repro_torch.launch.serve import (
+        build_model, policy_from_front, serve_batch,
+    )
+    from repro_torch.serving import FrontCatalog
+    from repro_torch.train.serve import make_prefill_step
+
+    lib = default_library()
+    total: dict = {}
+    cfg = get_config("granite-8b")
+    acc = LMAccelerator(cfg, use_reduced=False, seed=seed, device="cuda")
+    w = LM_DSE
+    run = _lm_dse_run(acc, lib, seed, "lm_dse")
+    res, inputs = run["res"], run["inputs"]
+    _add_launches(total, run["line"]["launches"])
+    layers = cfg.n_layers
+    peak = run["line"]["max_memory_allocated"]
+    front_g, front_o = res.front_genomes, res.front_objectives
 
     # the front as a catalog; its tiers decoded by the serving CLI's path
     cat = FrontCatalog.from_front(acc.name, front_g, front_o)
@@ -2302,26 +2725,7 @@ def phase_lm_dse(seed: int) -> dict:
     budget_policy, budget_sel = decoded["budget"]
     circuits, _ = acc.decode(budget_sel.point.genome_array(), lib)
     acc_logits = torch.from_numpy(acc.simulate(circuits, inputs[:1])[0])
-    dse_out = {
-        "phase": "lm_dse", "arch": cfg.name, "n_layers": layers,
-        "d_model": cfg.d_model, "batch": acc.batch, "seq": acc.seq,
-        **w, "pipeline": "D", "strategy": "nsga2", "reduced": None,
-        "wall_s": wall, "timings_s": res.timings, "val_pcc": res.val_pcc,
-        "labels": int(len(np.unique(g_all, axis=0))),
-        "forwards": forwards, "synth_cache": stats,
-        "qor_s_per_forward": (float(l_all["sim_time"].sum())
-                              / max(forwards["qor"] + forwards["exact"], 1)),
-        "synth_s_per_run": (float(l_all["synth_time"].sum())
-                            / max(stats["compiles"], 1)),
-        "front_size": int(len(front_g)),
-        "front_qor_range": [float(q_kernel.min()), float(q_kernel.max())],
-        "front_qor_kernel_vs_plain_max_abs_db": err,
-        "front_qor_chunked_form_vs_plain_max_abs_db": spread,
-        "front_qor_tolerance_db": tol, "resim_s": resim_s,
-        "exact_qor": exact_qor, "tiers": tiers,
-        "max_memory_allocated": peak, "param_bytes": acc.model.param_bytes(),
-        "launches": launches,
-    }
+    dse_out = {"phase": "lm_dse", **run["line"], "tiers": tiers}
     emit(dse_out)
     # the accelerator stays (its model freed, rebuilt from the seed on
     # next use) for the service phase, which serves its front's tiers
@@ -2416,6 +2820,21 @@ def phase_lm_dse(seed: int) -> dict:
     emit(falcon_out)
     facc.release()
     del facc
+    torch.cuda.empty_cache()
+
+    # granite-moe-3b: the DSE at full width and depth, then two genomes
+    # that differ only in their expert genes
+    mcfg = get_config("granite-moe-3b-a800m")
+    macc = LMAccelerator(mcfg, use_reduced=False, seed=seed, device="cuda")
+    mrun = _lm_dse_run(macc, lib, seed, "lm_dse_moe")
+    _add_launches(total, mrun["line"]["launches"])
+    pair = _lm_expert_pair(macc, lib, mrun["res"].front_genomes[0],
+                           "lm_dse_moe")
+    _add_launches(total, pair["launches"])
+    emit({"phase": "lm_dse_moe", **mrun["line"],
+          "widths": _serve_widths(mcfg), "expert_pair": pair})
+    macc.release()
+    del macc
     torch.cuda.empty_cache()
     out = {"phase": "lm_dse_total", "launches": total}
     emit(out)
@@ -3089,9 +3508,10 @@ def main(argv=None) -> int:
             line, lm_state = phase_lm_dse(args.seed)
             runs.append(line)
         if "serve" in phases:
-            runs.append(phase_serve("granite-8b", args.seed))
-            runs.append(phase_serve("granite-8b", args.seed, approx=True))
-            runs.append(phase_serve("falcon-mamba-7b", args.seed))
+            for arch in SERVE_ARCHS:
+                runs.append(phase_serve(arch, args.seed))
+                if arch == "granite-8b":
+                    runs.append(phase_serve(arch, args.seed, approx=True))
         if "service" in phases:
             dse_walls = {r["accel"]: r["wall_s"] for r in runs
                          if r.get("phase") == "dse"}

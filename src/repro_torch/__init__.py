@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference (``src/repro``): the same
 approximate-accelerator labeling and surrogate-guided DSE, and LM
-serving (granite-8b, falcon-mamba-7b), with the population LUT gather,
+serving (the dense, Mamba, mixture-of-experts and hybrid archs of
+``configs``), with the population LUT gather,
 the approximate matmuls, the prefill attention and the Mamba scan as
 hand-written CUDA kernels for Hopper (``csrc/``, built on first use by
 ``_build``).  It

@@ -31,8 +31,9 @@ differences:
   no store written on another device or from other weights may answer
   for them.
 
-The LM head is never approximated: its gene moves only
-``adjusted_compute`` (``models/transformer.py``).
+The LM head and the experts are never approximated (as in the JAX
+package): their genes move only ``adjusted_compute``
+(``models/transformer.py``, ``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -95,10 +96,37 @@ def _projections(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
             if kind.mlp == "dense":
                 out += [("ffn_in", d, cfg.d_ff), ("ffn_in", d, cfg.d_ff),
                         ("ffn_out", cfg.d_ff, d)]
-            elif kind.mlp == "moe":
-                raise NotImplementedError(
-                    f"{cfg.name}: the MoE layer is not ported yet")
     return out + [("lm_head", d, cfg.padded_vocab)]
+
+
+# the expert classes: the MoE layer never applies a policy to them
+# (``models/moe.py``), so their genes change neither the forward's graph
+# nor its logits, only ``adjusted_compute``
+_EXPERT_CLASSES = ("expert_in", "expert_out")
+
+
+def _moe_cost(cfg: ModelConfig, b: int, s: int) -> Tuple[float, float]:
+    """(flops, bytes) of the MoE layers of one forward over ``b`` x ``s``
+    tokens, exact under every genome: the float32 router (m x d x e) and
+    the three bf16 expert products over every slot at capacity (each
+    expert's ``cap`` slots a routing group, empty ones included), each
+    operand read and each output written once."""
+    from ..models.moe import MOE_GROUP
+
+    n_moe = sum(kd.mlp == "moe" for kd in cfg.block_pattern) * cfg.n_superblocks
+    if not n_moe:
+        return 0.0, 0.0
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
+    k = cfg.n_experts_active
+    if MOE_GROUP and s > MOE_GROUP and s % MOE_GROUP == 0:
+        b, s = b * (s // MOE_GROUP), MOE_GROUP
+    cap = max(int(s * k / e * cfg.capacity_factor), 1)
+    m, rows = b * s, e * b * cap
+    flops = 2.0 * m * d * e + 3 * 2.0 * rows * d * f
+    byts = (4.0 * (m * d + d * e + m * e)
+            + 2.0 * 2 * (rows * d + e * d * f + rows * f)     # wi, wg
+            + 2.0 * (rows * f + e * f * d + rows * d))        # wo
+    return n_moe * flops, n_moe * byts
 
 
 def _tensor_digest(state: Mapping[str, object]) -> str:
@@ -334,12 +362,13 @@ class LMAccelerator(Accelerator):
     def deploy_signature(self, specs: Sequence):
         """The base class's conservative signature, with each slot's
         class extended by exactness (an exact projection runs bf16, an
-        approximated one int8 plus corrections, at any rank) and the LM
-        head's class constant: the forward never approximates it, so its
-        gene does not change the graph."""
+        approximated one int8 plus corrections, at any rank) and the
+        classes no policy reaches constant: the forward never
+        approximates the LM head or the experts, so their genes do not
+        change the graph."""
         family, _ = super().deploy_signature(specs)
         classes = tuple(
-            ("lm_head",) if slot.name == "lm_head" else
+            (slot.name,) if slot.name in ("lm_head",) + _EXPERT_CLASSES else
             (int(sp.rank), int(sp.trunc_bits), bool(sp.signed),
              bool(sp.is_exact))
             for slot, sp in zip(self.slots, specs)
@@ -354,13 +383,15 @@ class LMAccelerator(Accelerator):
         rank) products, float32 operands, the U/V tables) plus its
         gathers, U[x] (m·k·r) and V[w] (k·n·r) in float32, each written
         and read once (the route materializes them); the attention core
-        (q·k and p·v over the causal pairs, bf16) and the scan
-        (``chip_smoke.py``'s count); the LM head always exact."""
+        (q·k and p·v over the causal pairs, bf16), the scan
+        (``chip_smoke.py``'s count) and the MoE layers (``_moe_cost``);
+        the LM head and the experts always exact."""
         from ..core.features.synth import grouped_cost
 
         cfg = self.cfg
+        exact_only = ("lm_head",) + _EXPERT_CLASSES
         spec_of = {slot.name: sp for slot, sp in zip(self.slots, specs)
-                   if slot.name != "lm_head" and not sp.is_exact}
+                   if slot.name not in exact_only and not sp.is_exact}
         b, s = self.batch, self.seq
         m = b * s
         flops = byts = 0.0
@@ -387,7 +418,8 @@ class LMAccelerator(Accelerator):
             flops += n_mamba * float(b) * s * di * (7 * n + 1)
             byts += n_mamba * 4.0 * (3 * b * s * di + 2 * b * s * n + di * n
                                      + 2 * b * di * n)
-        return {"flops": flops, "hbm_bytes": byts}
+        moe_flops, moe_bytes = _moe_cost(cfg, b, s)
+        return {"flops": flops + moe_flops, "hbm_bytes": byts + moe_bytes}
 
     def mul_slot_constants(self):
         return [None] * len(self.slots)

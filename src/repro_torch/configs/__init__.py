@@ -6,20 +6,20 @@ from importlib import import_module
 from typing import Dict, List
 
 _MODULES = {
+    "deepseek-67b": "deepseek_67b",
+    "gemma-2b": "gemma_2b",
+    "chatglm3-6b": "chatglm3_6b",
     "granite-8b": "granite_8b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "jamba-1.5-large-398b": "jamba_15_large",
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 # archs of the JAX package's registry that the port cannot build yet,
 # with the family that holds each back
 _NOT_PORTED = {
-    "deepseek-67b": "dense (not yet carried over)",
-    "gemma-2b": "dense (not yet carried over)",
-    "chatglm3-6b": "dense with 2d RoPE (not yet carried over)",
     "seamless-m4t-medium": "encdec",
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "granite-moe-3b-a800m": "moe",
-    "jamba-1.5-large-398b": "hybrid with moe",
     "qwen2-vl-72b": "vlm",
 }
 

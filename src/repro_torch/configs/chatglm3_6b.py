@@ -1,0 +1,9 @@
+"""chatglm3-6b [dense] — partial ('2d') RoPE, GQA kv=2 [arXiv:2406.12793]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="chatglm3-6b", family="dense",
+    n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2,
+    d_ff=13696, vocab_size=65024,
+    rope_style="half", rope_theta=10000.0,
+)

@@ -93,6 +93,7 @@ __all__ = [
     "synth_stats",
     "reset_fast_codegen",
     "LABEL_KEYS",
+    "LABEL_COUNT",
     "DEFAULT_QOR_SEED",
 ]
 
@@ -143,11 +144,11 @@ COMPILE_WORKERS = 1
 # port's analytic count, so the JAX package's XLA-counted files never
 # serve here
 SYNTH_CACHE_SCHEMA_VERSION = 1
-_COUNT = "torch-analytic"
+LABEL_COUNT = "torch-analytic"
 
 
 def _cache_salt() -> str:
-    return f"v{SYNTH_CACHE_SCHEMA_VERSION}|{_COUNT}"
+    return f"v{SYNTH_CACHE_SCHEMA_VERSION}|{LABEL_COUNT}"
 
 
 def _digest(tag: str, payload: object) -> str:

@@ -37,8 +37,10 @@ __all__ = [
 ]
 
 # bump on any incompatible wire change; register() rejects mismatches so
-# an old worker fails loudly at join time instead of mid-lease
-PROTOCOL_VERSION = 1
+# an old worker fails loudly at join time instead of mid-lease.  2: the
+# descriptor carries ``hw`` and the fingerprint names the label count,
+# so a JAX-package worker (protocol 1, XLA-counted labels) cannot join
+PROTOCOL_VERSION = 2
 
 
 def ctx_descriptor(ctx) -> Dict:

@@ -12,6 +12,13 @@ that serves several policies from one set of weights is built with
 ``proj_dtype=torch.float32`` (``accel.lm``).  The LM head is never
 approximated: ``logits`` runs it exact under every policy, as the JAX
 package's ``_logits`` does.
+
+MoE layers return their routing beside their output; ``last_aux`` is
+the Switch load-balance loss summed over the layers of the last
+``run_layers`` call (forward, prefill or decode; None for a model
+without MoE layers), where the training step reads it, as the JAX
+package's forward returns it.  It is computed from the kept routings
+when read, so serving, which never reads it, does not pay for it.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from .approx_linear import ApproxPolicy
 from .attention import Attention, init_kv_cache
 from .common import ParamSpec, init_params, make_rope, rms_norm
 from .config import LayerKind, ModelConfig
-from .moe import DenseMLP
+from .moe import DenseMLP, MoE, Routing, moe_aux
 from .ssm import Mamba, init_mamba_cache
 
 __all__ = ["Layer", "Transformer", "init_caches"]
@@ -36,7 +43,8 @@ Caches = List[Dict[str, torch.Tensor]]
 
 class Layer(nn.Module):
     """One layer of ``block_pattern``: a mixer (attention or Mamba) and
-    an optional dense MLP, each a residual branch."""
+    an optional dense MLP or MoE, each a residual branch.  ``forward``
+    returns ``(x, routing)``: the MoE's routing, or None."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind,
                  policy: Optional[ApproxPolicy], device,
@@ -45,8 +53,6 @@ class Layer(nn.Module):
         if kind.cross_attn:
             raise NotImplementedError(
                 "encoder-decoder cross attention is not ported yet")
-        if kind.mlp == "moe":
-            raise NotImplementedError("the MoE layer is not ported yet")
         self.kind = kind
         if kind.mixer == "attn":
             self.attn = Attention(cfg, policy, device, proj_dtype)
@@ -56,6 +62,10 @@ class Layer(nn.Module):
             raise ValueError(f"unknown mixer {kind.mixer!r}")
         self.mlp = (DenseMLP(cfg, policy, device, proj_dtype)
                     if kind.mlp == "dense" else None)
+        if kind.mlp == "moe":
+            self.moe = MoE(cfg, device)
+        elif kind.mlp not in ("dense", "none"):
+            raise ValueError(f"unknown mlp {kind.mlp!r}")
 
     def forward(self, x, inv_freq, *, cache=None, pos=None, impl="kernel",
                 policy=None):
@@ -65,9 +75,13 @@ class Layer(nn.Module):
         else:
             x = x + self.mamba(x, cache=cache, decode=pos is not None,
                                impl=impl, policy=policy)
+        routing = None
         if self.mlp is not None:
             x = x + self.mlp(x, policy=policy)
-        return x
+        elif self.kind.mlp == "moe":
+            y, routing = self.moe(x, policy=policy)
+            x = x + y
+        return x, routing
 
 
 class Transformer(nn.Module):
@@ -103,6 +117,7 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=torch.bfloat16, device=dev),
                 requires_grad=False)
+        self._routings: List[Routing] = []
         inv = make_rope(cfg.resolved_head_dim, cfg.rope_theta,
                         fraction=0.5 if cfg.rope_style == "half" else 1.0)
         self.register_buffer("inv_freq", torch.from_numpy(inv).to(dev),
@@ -138,6 +153,14 @@ class Transformer(nn.Module):
         init_params(specs, seed, self.device, out=params)
         return self
 
+    @property
+    def last_aux(self) -> Optional[torch.Tensor]:
+        """The load-balance loss of the last ``run_layers`` call, summed
+        over its MoE layers (float32), or None without MoE layers."""
+        if not self._routings:
+            return None
+        return sum(moe_aux(r, self.cfg) for r in self._routings)
+
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
@@ -152,10 +175,14 @@ class Transformer(nn.Module):
     def run_layers(self, x: torch.Tensor, *, caches: Optional[Caches] = None,
                    pos: Optional[int] = None, impl: str = "kernel",
                    policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
+        routings = []
         for j, layer in enumerate(self.layers):
-            x = layer(x, self.inv_freq,
-                      cache=caches[j] if caches is not None else None,
-                      pos=pos, impl=impl, policy=policy)
+            x, r = layer(x, self.inv_freq,
+                         cache=caches[j] if caches is not None else None,
+                         pos=pos, impl=impl, policy=policy)
+            if r is not None:
+                routings.append(r)
+        self._routings = routings
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,13 @@ across devices; the LM's are float and differ, so ``LMAccelerator``
 carries the device kind in its own ``label_fingerprint``) and
 ``hw``, the cost model of the hardware labels (semantics: every model
 but ``V5E`` adds ``hw=<model>`` to the fingerprint, so an H100-costed
-label never answers a v5e context or the reverse, and under ``V5E`` the
-fingerprint is the JAX package's, so a store file either package wrote
-is read by the other).
+label never answers a v5e context or the reverse).  The fingerprint
+also names how ``flops`` and ``hbm_bytes`` are counted
+(``synth.LABEL_COUNT``: the port's analytic count, where the JAX
+package reads XLA's ``cost_analysis``), under every ``hw``: only
+``qor`` and ``energy`` are the same function in both packages, so a
+store file the JAX package wrote misses here and its genomes are
+labeled anew.
 """
 
 from __future__ import annotations
@@ -148,6 +152,7 @@ class EvalContext:
                 _library_fingerprint(self.library),
                 f"rank_genes={int(self.rank_genes)}",
                 f"qor={self.n_qor_samples}@{self.qor_seed}",
+                f"count={synth.LABEL_COUNT}",
             ] + ([] if self.hw == V5E else [f"hw={self.hw!r}"]))
             self._fp = hashlib.sha256(sig.encode()).hexdigest()[:24]
         return self._fp

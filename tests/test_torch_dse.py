@@ -121,7 +121,8 @@ labels = default_labeler(acc, lib, n_qor_samples=1, synth_cache=cache,
                          device="cpu")(g)
 assert labels["qor"][0] == 100.0 and cache.stats()["compiles"] == 1
 cache.close()
-for arch in ("falcon-mamba-7b", "granite-8b"):
+for arch in ("falcon-mamba-7b", "granite-8b", "granite-moe-3b-a800m",
+             "jamba-1.5-large-398b"):
     tokens, _ = serve_batch(reduced(get_config(arch)), batch=2, prompt_len=8,
                             gen=3, device="cpu")
     assert tuple(tokens.shape) == (2, 11)

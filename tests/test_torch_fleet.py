@@ -25,6 +25,7 @@ from repro_torch.accel import MCMAccelerator
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.hw import V5E
 from repro_torch.fleet import (
+    PROTOCOL_VERSION,
     FleetCoordinator,
     HttpError,
     context_is_portable,
@@ -265,9 +266,25 @@ def _case_bye(coord, ctx, genomes):
     return box["out"]
 
 
+def _case_old_protocol_refused(coord, ctx, genomes):
+    """A worker that announces the JAX package's protocol (1: its labels'
+    flops and bytes are XLA's count) is refused at join and never
+    leases; a current worker then serves the batch."""
+    from repro.fleet.protocol import PROTOCOL_VERSION as REF_PROTOCOL
+
+    assert REF_PROTOCOL == 1 != PROTOCOL_VERSION
+    r = coord.register({"worker": "old", "protocol": REF_PROTOCOL,
+                        "accels": ["*"]})
+    assert not r["ok"] and f"protocol {REF_PROTOCOL}" in r["error"]
+    assert "old" not in coord.stats()["workers"]
+    return _case_roundtrip(coord, ctx, genomes)
+
+
 CASES = {
     # (case, lease TTL, heartbeat TTL, chunk size, genomes)
     "roundtrip": (_case_roundtrip, 5.0, 5.0, None, 12),
+    "old_protocol_refused_at_join": (_case_old_protocol_refused, 5.0, 5.0,
+                                     None, 4),
     "lease_expiry_requeues": (_case_lease_expiry, 0.3, 60.0, None, 8),
     "heartbeat_expiry_reclaims": (_case_heartbeat_expiry, 60.0, 0.3,
                                   None, 4),
@@ -444,8 +461,10 @@ def test_fleet_worker_warm_starts_and_labels_v5e_as_the_reference(tmp_path):
         s = coord.stats()
         assert s["workers"]["warm"]["store_hits"] == 4
         assert s["remote_labels"] == 6 and s["local_labels"] == 0
+        # the JAX package's context keys XLA-counted labels: another
+        # fingerprint, but the same qor and energy
         ref = RefEvalContext(RefMCM(1), ref_library(), n_qor_samples=2)
-        assert ref.fingerprint == ctx.fingerprint
+        assert ref.fingerprint != ctx.fingerprint
         rl = ref.ground_truth(genomes[4:])
         for k in ("qor", "energy"):
             assert out[k][4:].tobytes() == np.asarray(rl[k]).tobytes()

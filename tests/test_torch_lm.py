@@ -157,9 +157,16 @@ def test_approx_policy_logits_match_reference(circuit, rank):
 
 
 def test_registry_lists_only_ported_archs():
-    assert get_config("granite").name == "granite-8b"
+    assert get_config("granite-8").name == "granite-8b"
+    assert get_config("jamba").name == "jamba-1.5-large-398b"
+    # two ported archs start with "granite": ambiguous, as in the JAX
+    # package's registry
+    with pytest.raises(KeyError, match="unknown arch"):
+        ref_get_config("granite")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("granite")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("jamba-1.5-large-398b")
+        get_config("seamless-m4t-medium")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

@@ -2,13 +2,16 @@
 ``serving.catalog``, ``launch.serve --front``) on the CPU, against the
 JAX package's, at the reduced configs:
 
-* ``proj_classes_for`` on granite-8b, falcon-mamba-7b and the reduced
-  MoE config (read from the JAX package's registry as data);
+* ``proj_classes_for`` on granite-8b, falcon-mamba-7b, granite-moe-3b
+  and phi3.5-moe;
 * with the JAX package's parameters carried across
   (``convert.lm_params_from_numpy``), QoR within ``QOR_TOL_DB`` (the
   exact genome at the cap in both), ``energy`` and ``mxu_flops_adjusted``
   bit for bit under ``hw=V5E``, ``flops`` and ``hbm_bytes`` ranking
   designs as XLA's do (``RANK_RHO``), the LM head's gene a tie in both;
+  on granite-moe-3b, a genome that differs only in its expert genes
+  keeps its QoR, flops and bytes and changes its energy in both (no
+  policy reaches the experts);
 * ``policy_for_genome``, the catalog and ``policy_from_front`` on a
   front the JAX package wrote;
 * a tiny ``run_dse``, the CLI in-process (warm on its own store), the
@@ -56,7 +59,7 @@ from repro_torch.service.store import EvalContext
 
 LIB = default_library()
 RLIB = ref_library()
-ARCHS = ["granite-8b", "falcon-mamba-7b"]
+ARCHS = ["granite-8b", "falcon-mamba-7b", "granite-moe-3b-a800m"]
 MOE = "phi3.5-moe-42b-a6.6b"
 
 # Both packages' logits are bf16 and differ by a rounding (0.12 at most,
@@ -72,7 +75,13 @@ QOR_TOL_DB = 0.5
 # 24 others of each arch).  Bytes rank designs less alike: XLA charges
 # the quantization a weight pays at every rank more than the count does.
 RANK_RHO = {"flops": 0.95, "hbm_bytes": 0.8}
-N_GENOMES = {"granite-8b": 10, "falcon-mamba-7b": 6}
+N_GENOMES = {"granite-8b": 10, "falcon-mamba-7b": 6,
+             "granite-moe-3b-a800m": 8}
+
+
+def _expert_slots(acc):
+    return [i for i, s in enumerate(acc.slots)
+            if s.name in ("expert_in", "expert_out")]
 
 
 def _genomes(acc, n, seed):
@@ -83,6 +92,16 @@ def _genomes(acc, n, seed):
     # genome 2 is genome 1 with another LM-head circuit
     g[2] = g[1]
     g[2, -1] = (g[1, -1] + 1) % sizes[-1]
+    # on an MoE arch, genomes 1 and 3 differ only in their expert genes:
+    # a circuit deployed with a correction rank (costlier per product)
+    # against the exact one
+    ex = _expert_slots(acc)
+    if ex:
+        muls = LIB.kind("mul8s")
+        ranked = next(i for i, c in enumerate(muls) if c.deploy_rank > 0)
+        g[1, ex] = ranked
+        g[3] = g[1]
+        g[3, ex] = LIB.exact_index("mul8s")
     return np.asarray(g, dtype=np.int64)
 
 
@@ -111,21 +130,17 @@ def test_proj_classes_match_reference(arch, cut):
     rcfg = ref_get_config(arch)
     if cut == "reduced":
         rcfg = ref_reduced(rcfg)
-    if arch == MOE:
-        # the port's registry does not build the MoE family; its config
-        # crosses as data
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
-        cfg = ModelConfig(**{f.name: getattr(rcfg, f.name)
-                             for f in fields(ModelConfig)})
-    else:
-        cfg = get_config(arch)
-        cfg = reduced(cfg) if cut == "reduced" else cfg
+    cfg = get_config(arch)
+    cfg = reduced(cfg) if cut == "reduced" else cfg
+    # the port's config equals the JAX package's as data
+    assert cfg == ModelConfig(**{f.name: getattr(rcfg, f.name)
+                                 for f in fields(ModelConfig)})
     assert proj_classes_for(cfg) == ref_proj_classes_for(rcfg)
-    if arch != MOE:
-        acc = LMAccelerator(get_config(arch), use_reduced=cut == "reduced")
-        assert [s.name for s in acc.slots] == [
-            c for c, _ in ref_proj_classes_for(rcfg)]
+    acc = LMAccelerator(get_config(arch), use_reduced=cut == "reduced")
+    assert [s.name for s in acc.slots] == [
+        c for c, _ in ref_proj_classes_for(rcfg)]
+    if cfg.n_experts:
+        assert len(_expert_slots(acc)) == 2
 
 
 def test_qor_batch_matches_reference(pair):
@@ -136,8 +151,12 @@ def test_qor_batch_matches_reference(pair):
     assert np.all(got[1:] < qor.PSNR_CAP)
     assert np.max(np.abs(got - want)) <= QOR_TOL_DB
     assert np.array_equal(want, rlab["qor"])
-    # the LM head is never approximated: its gene leaves QoR unchanged
+    # the LM head is never approximated: its gene leaves QoR unchanged;
+    # nor are the experts
     assert got[1] == got[2] and want[1] == want[2]
+    if _expert_slots(acc):
+        assert not np.array_equal(g[1], g[3])
+        assert got[1] == got[3] and want[1] == want[3]
     # again: the exact logits are cached, each distinct genome runs once
     # per input
     before = dict(acc.forwards)
@@ -168,6 +187,13 @@ def test_hw_labels_match_reference_under_v5e(pair):
         # a tie in both
         assert np.argmin(lab[k]) == np.argmin(rlab[k]) == 0
         assert lab[k][1] == lab[k][2] and rlab[k][1] == rlab[k][2]
+        if _expert_slots(acc):
+            # the expert genes do not change the graph in either package
+            assert lab[k][1] == lab[k][3] and rlab[k][1] == rlab[k][3]
+    if _expert_slots(acc):
+        # ... but they move energy, by the same bits in both
+        assert lab["energy"][1] != lab["energy"][3]
+        assert lab["qor"][1] == lab["qor"][3]
 
 
 def test_policy_for_genome_matches_reference(pair):

@@ -1,12 +1,13 @@
 """The port's in-process campaign service (``repro_torch.service``) on the
 CPU, against the JAX package's:
 
-* the evaluation context's fingerprint equals the JAX package's under
-  ``hw=V5E`` (so store files interchange) and differs between the H100
-  and v5e cost models; the device stays out of it;
-* a ``.jsonl`` label store that the JAX package wrote is read by the
-  port: every request a store hit, no ground truth, and the stored
-  ``qor``/``energy`` equal the port's own labels bit for bit;
+* the evaluation context's fingerprint is the JAX package's signature
+  plus the label count it names (``synth.LABEL_COUNT``), so under
+  ``hw=V5E`` no key is shared; it differs between the H100 and v5e
+  cost models; the device stays out of it;
+* a ``.jsonl`` label store that the JAX package wrote answers no port
+  context: every genome is labeled anew, its ``qor``/``energy`` equal
+  to the stored bytes and its ``flops``/``hbm_bytes`` the port's own;
 * the scheduler's store hits, in-flight dedup and duplicate rows in one
   call (the counterparts of ``tests/test_service.py``'s scheduler
   cases);
@@ -20,6 +21,7 @@ CPU, against the JAX package's:
 
 Every genome is drawn from a numpy seed."""
 
+import hashlib
 import threading
 import time
 
@@ -51,7 +53,8 @@ from repro_torch.service import (
     JsonlLabelStore,
     make_accelerator,
 )
-from repro_torch.service.store import LABEL_KEYS
+from repro_torch.service import store as store_mod
+from repro_torch.service.store import LABEL_KEYS, STORE_SCHEMA_VERSION
 
 LIB = default_library()
 RLIB = ref_library()
@@ -81,13 +84,23 @@ def _genomes(acc, n, seed):
 
 @pytest.mark.parametrize("name", list(ACCELS))
 def test_fingerprint_equals_the_reference_under_v5e(name):
+    """Under ``V5E`` the port's fingerprint differs from the JAX
+    package's only by the label count it names: the two packages count
+    flops and bytes differently, so no key is shared."""
     port, ref = ACCELS[name]
     want = RefEvalContext(ref(), RLIB, n_qor_samples=2).fingerprint
     got = EvalContext(port(), LIB, n_qor_samples=2, hw=V5E)
-    assert got.fingerprint == want
+    assert got.fingerprint != want
+    # the rest of the signature is the JAX package's: with the count's
+    # term dropped, the digests are equal
+    sig = "|".join([
+        f"v{STORE_SCHEMA_VERSION}", store_mod._accel_fingerprint(got.accel),
+        store_mod._library_fingerprint(LIB), "rank_genes=0",
+        f"qor=2@{got.qor_seed}"])
+    assert hashlib.sha256(sig.encode()).hexdigest()[:24] == want
     g = _genomes(got.accel, 3, 0)
     ref_ctx = RefEvalContext(ref(), RLIB, n_qor_samples=2)
-    assert [got.key(r) for r in g] == [ref_ctx.key(r) for r in g]
+    assert not {got.key(r) for r in g} & {ref_ctx.key(r) for r in g}
 
 
 @pytest.mark.parametrize("name", list(ACCELS))
@@ -121,6 +134,9 @@ def test_context_fingerprint_sensitivity():
 # ---------------------------------------------------------------------------
 
 def test_reference_written_store_is_read_without_ground_truth(tmp_path):
+    """A store the JAX package wrote answers no port context: its flops
+    and bytes are XLA's count, so the port labels every genome anew, with
+    the stored qor and energy and its own flops and bytes."""
     path = str(tmp_path / "labels.jsonl")
     genomes = _genomes(MCMAccelerator(1), 12, 7)
     ref_store = RefJsonlLabelStore(path)
@@ -138,14 +154,15 @@ def test_reference_written_store_is_read_without_ground_truth(tmp_path):
     s = sched.stats()
     sched.shutdown()
     store.close()
-    assert s["labeled"] == 0 and s["batches"] == 0
-    assert s["store_hits"] == s["requests"] == len(np.unique(genomes, axis=0))
-    for k in LABEL_KEYS:
-        assert got[k].tobytes() == want[k].tobytes(), k
-    # and the port's own ground truth gives the stored qor and energy
-    fresh = ctx.ground_truth(genomes)
+    n = len(np.unique(genomes, axis=0))
+    assert s["labeled"] == s["requests"] == n and s["store_hits"] == 0
     for k in ("qor", "energy"):
-        assert fresh[k].tobytes() == want[k].tobytes(), k
+        assert got[k].tobytes() == want[k].tobytes(), k
+    # flops and bytes are the port's own count, not the stored XLA ones
+    fresh = ctx.ground_truth(genomes)
+    for k in ("flops", "hbm_bytes", "latency"):
+        assert got[k].tobytes() == fresh[k].tobytes(), k
+    assert not np.array_equal(got["flops"], want["flops"])
 
 
 def test_h100_labels_never_answer_a_v5e_context():
@@ -309,7 +326,9 @@ def test_manager_passes_device_and_hw_to_its_contexts():
         assert mgr.wait(cid, timeout=600) == "done"
         ctx = mgr._get(cid).ctx
         assert ctx.device == "cpu" and ctx.hw is V5E
-        assert ctx.fingerprint == RefEvalContext(
+        assert ctx.fingerprint == EvalContext(
+            MCMAccelerator(1), LIB, n_qor_samples=2, hw=V5E).fingerprint
+        assert ctx.fingerprint != RefEvalContext(
             RefMCM(1), RLIB, n_qor_samples=2).fingerprint
         assert mgr.status(cid)["front_size"] > 0
         assert mgr.health()["ok"]
@@ -386,7 +405,9 @@ def test_lm_accelerator_raises():
     assert acc.device.type == "cpu"
     CampaignSpec(accel="lm:granite-8b", **SMALL).validate()
     with pytest.raises(ValueError, match="not ported yet"):
-        make_accelerator("lm:jamba-1.5-large-398b")
+        make_accelerator("lm:seamless-m4t-medium")
+    moe = make_accelerator("lm:granite-moe-3b-a800m", device="cpu")
+    assert {"expert_in", "expert_out"} <= {s.name for s in moe.slots}
     with pytest.raises(ValueError, match="unknown accelerator"):
         CampaignSpec(accel="lm:no-such-arch", **SMALL).validate()
 

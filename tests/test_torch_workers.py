@@ -85,8 +85,10 @@ def test_process_labels_byte_equal_thread_and_reference(pool, name, hw):
     for k in DET_KEYS:
         assert got[k].tobytes() == want[k].tobytes(), k
     if hw is V5E:
+        # the JAX package's context keys XLA-counted labels: another
+        # fingerprint, but the same qor and energy
         rctx = RefEvalContext(ref(), RLIB, n_qor_samples=2)
-        assert rctx.fingerprint == ctx.fingerprint
+        assert rctx.fingerprint != ctx.fingerprint
         rlab = rctx.ground_truth(g[:4])
         for k in ("qor", "energy"):
             assert got[k][:4].tobytes() == np.asarray(rlab[k]).tobytes(), k
