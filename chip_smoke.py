@@ -18,7 +18,10 @@ Phases, one JSON object per line on standard output:
    CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
    tensor-core kernel (head dim 64 and 128, ragged and shifted-causal
    rows included) within one bf16 rounding of the output, at the
-   prefill shape of every served arch; selective_scan
+   prefill shape of every served arch; the attention backward
+   (``flash_attention_bwd``: dQ, dK, dV) against autograd through the
+   plain forward in float32, at the train phase's shapes and each head
+   dim, SDPA's backward as its library call; selective_scan
    within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at b * di > 4096,
    ragged edges of both kernels' tiling included), both timed with CUDA
    events, and where one PyTorch call computes the same function (the
@@ -156,7 +159,28 @@ Phases, one JSON object per line on standard output:
    and the decode's launches and idle share.  The ``_approx`` phase
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
    at rank 3.
-11. ``service`` — the campaign service's HTTP front end
+11. ``train`` — training through ``launch/train.py``: ``train_gemma-2b``
+   runs ``train_loop`` on gemma-2b at full size (18 layers, d 2048, MQA,
+   head dim 256, tied 256k vocab; float32 master weights, AdamW, weights
+   from the seed) for 12 steps of 8 x 1024 tokens in 2 micro-batches at
+   lr 1e-3, warmup 1 (``TRAIN``): tokens/s, seconds a step, peak memory,
+   the losses and gradient norms, the step's model FLOPs over the bf16
+   peak; gates: the last loss below the first, nothing NaN, the forward
+   kernel launched twice (remat) and ``flash_attention_bwd`` once an
+   attention layer a micro-batch pass.  ``train_check``: one step's loss,
+   every gradient and the global gradient norm on gemma-2b's first 2
+   layers at full width, kernels against the plain attention, within
+   max(floor, 2 x the spread the JAX model code's own form of attention
+   shows against the plain one in the same run).  ``train_moe``:
+   granite-moe-3b at full width on 4 of its 32 layers, 3 steps of 2 x
+   1024; the load-balance loss finite and in the loss, the d=64
+   tensor-core forward and the backward launched.  ``train_resilient``:
+   ``run_resilient`` on a small gemma with a checkpoint every 2 steps
+   and a failure injected at step 3: one restart, losses and final
+   parameters bit-equal to a clean run's.  ``train_mamba_refuses``: a
+   reduced falcon-mamba training step on the card raises
+   ``NotImplementedError`` (the scan has no backward kernel yet).
+12. ``service`` — the campaign service's HTTP front end
    (``service/api.py``) on a free local port, its process pool, fleet
    and serving tier on the card.  (a) ``process``: a ``gaussian3x3``
    campaign posted through ``Client`` at the paper's widths and the dse
@@ -189,16 +213,19 @@ Phases, one JSON object per line on standard output:
    orchestrator's reclaimed chunks need.
 
 Every kernel's launch count is set to 0 just before each run of phases 4
-to 11 (each accelerator's labels, each dse, each cache batch, each figure
+to 12 (each accelerator's labels, each dse, each cache batch, each figure
 run, each hier run, the LM's dse, its served tier and falcon's labels,
-each serve, each service campaign and request set) and read just after;
+each serve, each training run, each service campaign and request set)
+and read just after (``train_check``'s launches are a comparison and do
+not count);
 the process pool's children and the fleet's workers count their own
 launches and report them with each chunk's labels, and those reports
 are what the service phase reads; so does each Figs. 8/9 row's process,
 with its line.  A kernel of the
 phase's main path (``MAIN_PATH``) that the phase did not launch, or did
-not launch once per attention (or Mamba) layer for the serve phases,
-fails the run.  ``lut_matmul`` and
+not launch once per attention (or Mamba) layer for the serve phases
+(twice forward and once backward a layer and a micro-batch pass for
+the training runs), fails the run.  ``lut_matmul`` and
 ``lut_matmul_sm90`` are the behavioural route of the deployment module,
 which the labels do not run; their rows in phase 3 hold them against
 their plain version.
@@ -253,6 +280,16 @@ FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5  # tests/test_kernels.py
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2 ** -7, 1e-3
 # the library call (bf16 P.V on the tensor cores) is only a yardstick
 SDPA_RTOL, SDPA_ATOL = 2e-2, 5e-2
+# the attention backward (dQ, dK, dV) against autograd through the plain
+# forward in float32: float32 rows at the forward's tolerance; bf16 rows
+# within two bf16 roundings relative and 2^-7 of the largest gradient
+# absolute (the kernel takes D = rowsum(dO * O) from the bf16 forward
+# output, as FlashAttention-2 does, where the plain version's float32
+# autograd has no rounded O; then each output rounds once to bf16)
+FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_FRAC = 2 ** -6, 2 ** -7
+# SDPA's backward (bf16 products on the tensor cores) is only a yardstick:
+# finite, within 5% of the largest gradient
+SDPA_BWD_FRAC = 5e-2
 SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-5    # tests/test_kernels_scan.py
 SCAN_WIDE_TOL = 1e-4                 # 1024 sequential steps
 # bf16 logits: the JAX package's own tolerance (tests/test_models.py) at
@@ -314,6 +351,22 @@ FLASH_CASES = [
     (2, 24, 8, 32, 32, 64, 0, "bfloat16",
      "granite-moe-3b LM DSE forward (b 2, s 32)"),
 ]
+# flash-attention backward rows: (b, h, kvh, s, d, causal, dtype, label);
+# the training shapes of the train phase (gemma-2b's micro-batch, d=256
+# MQA; granite-moe-3b's, d=64 GQA 24/8), every head dim in both dtypes,
+# GQA, a ragged length and a non-causal row
+FLASH_BWD_CASES = [
+    (1, 4, 4, 128, 64, True, "float32", "JAX test shape"),
+    (1, 8, 2, 1000, 128, True, "float32", "ragged, GQA 8/2"),
+    (1, 4, 2, 200, 128, False, "float32", "ragged, non-causal, GQA 4/2"),
+    (1, 4, 4, 256, 256, True, "float32", "head dim 256"),
+    (1, 4, 4, 256, 64, True, "bfloat16", "head dim 64"),
+    (1, 8, 2, 1000, 128, True, "bfloat16", "ragged, GQA 8/2, head dim 128"),
+    (4, 8, 1, 1024, 256, True, "bfloat16",
+     "gemma-2b training micro-batch (4 x 1024), MQA, head dim 256"),
+    (2, 24, 8, 1024, 64, True, "bfloat16",
+     "granite-moe-3b training micro-batch (2 x 1024), GQA 24/8"),
+]
 # selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
 # falcon-mamba-7b's prefill at the serving batch, then ragged edges of the
 # kernel's tiling (tiles of 16 steps in groups of 4, blocks of 64
@@ -349,6 +402,11 @@ MAIN_PATH = {
     "serve_deepseek-67b": ("flash_attention_sm90",),
     "serve_granite-moe-3b-a800m": ("flash_attention_sm90",),
     "serve_phi3.5-moe-42b-a6.6b": ("flash_attention_sm90",),
+    # training: the forward kernel of the arch's head dim, twice a layer
+    # with remat, and the backward kernel
+    "train_gemma-2b": ("flash_attention", "flash_attention_bwd"),
+    "train_moe": ("flash_attention_sm90", "flash_attention_bwd"),
+    "train_resilient": ("flash_attention_sm90", "flash_attention_bwd"),
     "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
 # rank_k launches of one variant's deployment graph (``build_deploy``):
@@ -361,7 +419,7 @@ DEPLOY_LAUNCHES = {
     "smoothed_dct/stage0": 1, "smoothed_dct/stage1": 8,
 }
 PHASES = ("device", "build", "kernel", "labels", "dse", "cache", "figs",
-          "hier", "lm_dse", "serve", "service")
+          "hier", "lm_dse", "serve", "train", "service")
 # the figs phase: Fig. 5's 1000 training and 1000 test genomes; Figs.
 # 8/9's MCM rows and NSGA-II generations; the power surrogate of both
 # (the JAX package's default, bayesian_ridge, is singular on pipeline E's
@@ -705,6 +763,7 @@ def phase_kernels(seed: int) -> list:
     rows += _circuit_rows(dev, lib)
     rows += _lut_rows(rng, dev, lib, x9, w9, specs)
     rows += _flash_rows(rng, dev)
+    rows += _flash_bwd_rows(rng, dev)
     rows += _scan_rows(rng, dev)
     return rows
 
@@ -1140,6 +1199,87 @@ def _flash_rows(rng, dev) -> list:
                        else CUDA_CORE_OPS_PER_S),
             exps=float(pairs),   # one softmax exponential per visible pair
         ))
+    return rows
+
+
+def _close_to_max(rtol, frac):
+    """allclose with an absolute tolerance of ``frac`` of the largest
+    element of the plain version's output."""
+    def compare(got, want, what):
+        import torch
+
+        for g, w in zip(got, want):
+            check(bool(torch.isfinite(g).all()), f"{what}: not finite")
+            atol = frac * float(w.float().abs().max())
+            check(torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol),
+                  f"{what}: outside rtol {rtol}, atol {atol:.3g} (max |diff| "
+                  f"{_max_err(g, w):.3g})")
+    return compare
+
+
+def _flash_bwd_rows(rng, dev) -> list:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention_bwd_kernel, flash_attention_kernel,
+    )
+
+    rows = []
+    for b, h, kvh, s, d, causal, dtype, label in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
+        q, k, v, do = (draw(b, h, s, d), draw(b, kvh, s, d),
+                       draw(b, kvh, s, d), draw(b, h, s, d))
+        out = flash_attention_kernel(q, k, v, causal=causal)
+        # SDPA's backward alone: its forward runs once, outside the timing
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                              enable_gqa=True)
+        pairs = _causal_pairs(s, s, 0, causal) * b * h
+        esz = q.element_size()
+        rows.append(_kernel_row(
+            "flash_attention_bwd",
+            f"b={b} h={h} kvh={kvh} s={s} d={d} "
+            f"{'bf16' if bf16 else 'f32'} "
+            f"{'causal' if causal else 'non-causal'} ({label})",
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "none (the gradient of src/repro/kernels/flash_attention/"
+            "kernel.py:77, which has no backward; the JAX package "
+            "differentiates its chunked XLA form)",
+            lambda q=q, k=k, v=v, out=out, do=do, c=causal:
+                flash_attention_bwd_kernel(q, k, v, out, do, causal=c),
+            lambda q=q, k=k, v=v, do=do, c=causal: attention_bwd_ref(
+                q, k, v, do, causal=c),
+            (_close_to_max(FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_FRAC) if bf16
+             else _close(FLASH_RTOL, FLASH_ATOL)),
+            # q, k, v, the output and its gradient read; dq, dk, dv written
+            nbytes=esz * 4.0 * (q.numel() + k.numel()),
+            # five products of 2 d flops a visible pair: the scores again,
+            # dP, dV, dK, dQ
+            ops=10.0 * d * pairs, repeats=5, plain_repeats=2,
+            library_fn=lambda lout=lout, ql=ql, kl=kl, vl=vl, do=do: tuple(
+                torch.autograd.grad(lout, (ql, kl, vl), do,
+                                    retain_graph=True)),
+            library_compare=_close_to_max(0.0, SDPA_BWD_FRAC),
+            # bf16 operands: the bound is the card's bf16 tensor-core
+            # rate, whatever units this kernel runs its products on; the
+            # float32 CUDA-core figure is kept beside it
+            extra=({"cuda_core_bound_ms": max(
+                esz * 4.0 * (q.numel() + k.numel()) / HBM_BYTES_PER_S,
+                10.0 * d * pairs / CUDA_CORE_OPS_PER_S) * 1e3} if bf16
+                else None),
+            ops_per_s=(TENSOR_CORE_BF16_OPS_PER_S if bf16
+                       else CUDA_CORE_OPS_PER_S),
+            exps=float(pairs),   # one exponential a visible pair at least
+        ))
+        del out, lout, ql, kl, vl
     return rows
 
 
@@ -2482,6 +2622,425 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     return out
 
 
+# the train phase: ``launch/train.py``'s ``train_loop`` on gemma-2b at
+# full size (``TRAIN``), the kernel step against the plain one on its
+# first ``TRAIN_CHECK_LAYERS`` layers, granite-moe-3b at full width on
+# ``TRAIN_MOE_LAYERS`` layers, ``run_resilient`` on a reduced gemma with
+# one injected failure, and falcon-mamba's refusal to train on the card
+TRAIN = dict(steps=12, batch=8, seq=1024, n_micro=2, lr=1e-3)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = 4
+TRAIN_MOE = dict(steps=3, batch=2, seq=1024, n_micro=1, lr=1e-3)
+TRAIN_MOE_LAYERS = 4
+# a small gemma whose head dim the kernels take (the reduced config's 16
+# is the CPU tests')
+TRAIN_RESILIENT_CFG = dict(n_layers=2, d_model=256, n_heads=4, head_dim=64,
+                           d_ff=512, vocab_size=2048)
+TRAIN_RESILIENT = dict(steps=6, batch=4, seq=256, ckpt_every=2, fail_at=3)
+# the kernel step's loss and gradients against the plain step's: bf16
+# rounding moves them, by as much as the JAX model code's own form of
+# attention (q scaled in bf16 before the float32 cast) moves them from
+# the plain one, measured in the same run; the kernel is held to
+# max(floor, TRAIN_SPREAD_FACTOR x that spread), each gradient by its
+# norm's relative difference and its largest elementwise difference over
+# its largest element.  The floors are 2 to 3 x the larger of the
+# kernel's and the spread's readings on the H100 (PERF.md §6; the step is
+# deterministic): loss 1.15e-5 / 1.65e-5, total gradient norm 3.5e-6 /
+# 4.5e-6 (floored at 1e-4), worst tensor's norm 1.5e-4 / 2.3e-4, worst
+# elementwise 8.6e-3 / 8.0e-3
+TRAIN_SPREAD_FACTOR = 2.0
+TRAIN_LOSS_FLOOR = 5e-5
+TRAIN_GRAD_NORM_TOTAL_FLOOR = 1e-4
+TRAIN_GRAD_NORM_FLOOR = 7e-4
+TRAIN_GRAD_MAX_FLOOR = 2e-2
+
+
+def _attn_layers(cfg) -> int:
+    return sum(k.mixer == "attn"
+               for _ in range(cfg.n_superblocks) for k in cfg.block_pattern)
+
+
+def _train_flops(cfg, params: dict, tokens: int, pairs: int) -> dict:
+    """A step's model FLOPs: 6 x the matrix parameters a token meets
+    (the layers' and the head's, tied or not) x tokens, plus the
+    attention's two products at 2 d flops a visible pair in the forward
+    and twice that in the backward; and the FLOPs with remat's second
+    forward of every layer."""
+    layer = sum(p.numel() for n, p in params.items()
+                if n.startswith("layers.") and p.dim() >= 2)
+    head = cfg.d_model * cfg.padded_vocab
+    attn_fwd = (4.0 * cfg.resolved_head_dim * pairs * cfg.n_heads
+                * _attn_layers(cfg))
+    model_flops = 6.0 * (layer + head) * tokens + 3 * attn_fwd
+    return {"model_flops": model_flops,
+            "flops_with_remat": model_flops + 2.0 * layer * tokens
+            + attn_fwd}
+
+
+def _train_launch_check(name, cfg, launches, micro_passes: int) -> dict:
+    """Each attention layer launches its forward kernel twice in each
+    micro-batch's pass (remat runs it again in the backward) and the
+    backward kernel once."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel_route
+
+    fwd = kernel_route(torch.bfloat16, cfg.resolved_head_dim)
+    check(fwd in MAIN_PATH[name], f"{name}: forward route {fwd}")
+    want = {fwd: 2 * _attn_layers(cfg) * micro_passes,
+            "flash_attention_bwd": _attn_layers(cfg) * micro_passes}
+    for k, n in want.items():
+        check(launches[k] == n,
+              f"{name}: {k} launched {launches[k]} times, not {n} (attention "
+              f"layers x micro-batch passes{' x 2' if k == fwd else ''})")
+    return want
+
+
+def _train_gemma(seed: int) -> dict:
+    import contextlib
+    import math
+
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+
+    name = "train_gemma-2b"
+    cfg = get_config("gemma-2b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist: list = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        state, losses = train_loop(cfg, device="cuda", seed=seed,
+                                   history=hist, log_every=TRAIN["steps"],
+                                   **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model_params = sum(p.numel() for p in state["params"].values())
+
+    check(len(losses) == TRAIN["steps"], f"{name}: {len(losses)} steps")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{name}: step {h['step']} not finite: {h}")
+    check(losses[-1] < losses[0],
+          f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    want = _train_launch_check(name, cfg, launches,
+                               TRAIN["n_micro"] * TRAIN["steps"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    steady = statistics.median(h["step_s"] for h in hist[1:])
+    flops = _train_flops(cfg, state["params"], tokens, TRAIN["batch"]
+                         * _causal_pairs(TRAIN["seq"], TRAIN["seq"], 0, True))
+    del state
+    torch.cuda.empty_cache()
+    out = {
+        "phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "widths": _serve_widths(cfg),
+        "vocab": cfg.padded_vocab, "params": model_params, **TRAIN,
+        "reduced": {"steps": TRAIN["steps"],
+                    "why": "a smoke run: the loss must fall, not converge"},
+        "wall_s": wall,
+        "first_step_s": hist[0]["step_s"], "step_s_median": steady,
+        "step_s": [h["step_s"] for h in hist],
+        "tokens_per_s": tokens / steady,
+        "max_memory_allocated": peak,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses, "grad_norm": [h["grad_norm"] for h in hist],
+        **flops,
+        "model_flops_over_bf16_peak": flops["model_flops"] / steady
+        / TENSOR_CORE_BF16_OPS_PER_S,
+        "launches": launches, "launches_expected": want,
+    }
+    emit(out)
+    return out
+
+
+def _grad_diffs(got: dict, want: dict) -> dict:
+    """The worst over tensors of each gradient's relative norm difference
+    and of its largest elementwise difference over its largest element."""
+    import torch
+
+    worst_norm = worst_max = 0.0
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        wn = float(torch.linalg.vector_norm(w))
+        top = float(w.abs().max())
+        if top == 0.0:
+            check(not bool(g.any()), f"train_check: {k} gradient not 0")
+            continue
+        worst_norm = max(worst_norm, abs(float(torch.linalg.vector_norm(g))
+                                         - wn) / wn)
+        worst_max = max(worst_max, float((g - w).abs().max()) / top)
+    return {"grad_norm_rel": worst_norm, "grad_max_rel": worst_max}
+
+
+def _train_check(seed: int) -> dict:
+    """One training step's loss, gradients and global gradient norm with
+    the kernels against the same with the plain attention, on the first
+    ``TRAIN_CHECK_LAYERS`` layers of gemma-2b at full width."""
+    from dataclasses import replace
+
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Transformer
+    from repro_torch.train import make_loss_fn
+
+    name = "train_check"
+    published = get_config("gemma-2b")
+    cfg = replace(published, n_layers=TRAIN_CHECK_LAYERS)
+    model = Transformer(cfg, device="cuda", trainable=True)
+    model.init_weights(seed)
+    b = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_BATCH, TRAIN["seq"],
+                      seed=seed).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+    def step(impl, form=None):
+        orig = attn_mod.attn_op
+        if form is not None:
+            attn_mod.attn_op = form
+        try:
+            model.zero_grad(set_to_none=True)
+            loss, _ = make_loss_fn(model, impl=impl)(batch)
+            loss.backward()
+        finally:
+            attn_mod.attn_op = orig
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()}
+        gn = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                  for g in grads.values())))
+        return float(loss.detach()), grads, gn
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    k_loss, k_g, k_gn = step("kernel")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    p_loss, p_g, p_gn = step("plain")
+    c_loss, c_g, c_gn = step("plain", form=_chunked_form_attention)
+    model.zero_grad(set_to_none=True)
+    err = {"loss_rel": abs(k_loss - p_loss) / abs(p_loss),
+           "grad_norm_total_rel": abs(k_gn - p_gn) / p_gn,
+           **_grad_diffs(k_g, p_g)}
+    spread = {"loss_rel": abs(c_loss - p_loss) / abs(p_loss),
+              "grad_norm_total_rel": abs(c_gn - p_gn) / p_gn,
+              **_grad_diffs(c_g, p_g)}
+    floors = {"loss_rel": TRAIN_LOSS_FLOOR,
+              "grad_norm_total_rel": TRAIN_GRAD_NORM_TOTAL_FLOOR,
+              "grad_norm_rel": TRAIN_GRAD_NORM_FLOOR,
+              "grad_max_rel": TRAIN_GRAD_MAX_FLOOR}
+    tol = {k: max(floors[k], TRAIN_SPREAD_FACTOR * spread[k]) for k in err}
+    fwd = "flash_attention"
+    check(launches[fwd] == TRAIN_CHECK_LAYERS * 2
+          and launches["flash_attention_bwd"] == TRAIN_CHECK_LAYERS,
+          f"{name}: launches {launches}")
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN["seq"],
+           "reduced": {"n_layers": {"published": published.n_layers,
+                                    "run": cfg.n_layers},
+                       "batch": {"train": TRAIN["batch"],
+                                 "run": TRAIN_CHECK_BATCH},
+                       "why": "three full backward passes, one with the "
+                              "plain attention's (b, h, s, s) float32 "
+                              "scores; the kernels' share of the gradient "
+                              "is the same in every layer"},
+           "loss": {"kernel": k_loss, "plain": p_loss, "chunked_form": c_loss},
+           "grad_norm": {"kernel": k_gn, "plain": p_gn, "chunked_form": c_gn},
+           "kernel_vs_plain": err, "chunked_form_vs_plain": spread,
+           "tolerance": tol, "comparison_launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    del model, k_g, p_g, c_g
+    torch.cuda.empty_cache()
+    emit(out)
+    for k in err:
+        check(err[k] <= tol[k], f"{name}: kernel vs plain {k} {err[k]:.4g} "
+                                f"(tolerance {tol[k]:.4g})")
+    return out
+
+
+def _train_moe(seed: int) -> dict:
+    import contextlib
+    import math
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import AUX_COEF
+
+    name = "train_moe"
+    published = get_config("granite-moe-3b-a800m")
+    cfg = replace(published, n_layers=TRAIN_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    hist: list = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        state, losses = train_loop(cfg, device="cuda", seed=seed,
+                                   history=hist, **TRAIN_MOE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    del state
+    torch.cuda.empty_cache()
+    for h in hist:
+        check(math.isfinite(h["aux"]) and h["aux"] > 0,
+              f"{name}: step {h['step']} load-balance loss {h['aux']}")
+        check(abs(h["loss"] - (h["ce"] + AUX_COEF * h["aux"]))
+              <= 1e-5 * abs(h["loss"]),
+              f"{name}: step {h['step']} loss {h['loss']} is not ce + "
+              f"{AUX_COEF} x aux")
+    want = _train_launch_check(name, cfg, launches,
+                               TRAIN_MOE["n_micro"] * TRAIN_MOE["steps"])
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "widths": _serve_widths(cfg), **TRAIN_MOE,
+           "reduced": {"n_layers": {"published": published.n_layers,
+                                    "run": cfg.n_layers},
+                       "steps": TRAIN_MOE["steps"],
+                       "why": "the MoE layer's gradient and the load-balance "
+                              "loss are the same in every layer; time"},
+           "wall_s": wall, "step_s": [h["step_s"] for h in hist],
+           "losses": losses, "ce": [h["ce"] for h in hist],
+           "aux": [h["aux"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_expected": want}
+    emit(out)
+    return out
+
+
+def _train_resilient(seed: int) -> dict:
+    import tempfile
+
+    import torch
+
+    from repro_torch import _build
+    from repro_torch.checkpoint import FailureInjector, run_resilient
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step
+
+    name = "train_resilient"
+    r = TRAIN_RESILIENT
+    cfg = reduced(get_config("gemma-2b"), **TRAIN_RESILIENT_CFG)
+    opt = AdamW(lr=1e-3, warmup_steps=1)
+    pipe = TokenPipeline(cfg.vocab_size, r["batch"], r["seq"], seed=seed)
+    # one model: each start re-seeds its weights and makes a fresh state,
+    # into which run_resilient restores the latest checkpoint
+    model = Transformer(cfg, device="cuda", trainable=True)
+    step = make_train_step(model, opt)
+
+    def init():
+        model.init_weights(seed)
+        return init_state(dict(model.named_parameters()), opt)
+
+    def step_fn(state, i):
+        b = pipe.batch_at(i)
+        state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                for k, v in b.items()})
+        return state, float(m["loss"])
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        clean, clean_rep = run_resilient(
+            init, step_fn, n_steps=r["steps"], ckpt_dir=f"{d}/clean",
+            ckpt_every=r["ckpt_every"])
+        clean_params = {k: p.detach().clone()
+                        for k, p in clean["params"].items()}
+        faulty, rep = run_resilient(
+            init, step_fn, n_steps=r["steps"], ckpt_dir=f"{d}/faulty",
+            ckpt_every=r["ckpt_every"],
+            injector=FailureInjector(fail_at=[r["fail_at"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    clean_loss = dict(clean_rep.history)
+    loss_diff = max(abs(loss - clean_loss[i]) for i, loss in rep.history)
+    param_diff = max(float((p.detach() - clean_params[k]).abs().max())
+                     for k, p in faulty["params"].items())
+    check(rep.restarts == 1, f"{name}: {rep.restarts} restarts, not 1")
+    check(loss_diff == 0.0 and param_diff == 0.0,
+          f"{name}: the resumed run differs from the clean one (losses by "
+          f"{loss_diff}, parameters by {param_diff}); the step is "
+          "deterministic")
+    for k in MAIN_PATH[name]:
+        check(launches[k] > 0, f"{name}: launched no {k}")
+    del model, clean, faulty, clean_params
+    torch.cuda.empty_cache()
+    out = {"phase": name, "arch": cfg.name, "config": TRAIN_RESILIENT_CFG,
+           **r, "reduced": {**TRAIN_RESILIENT_CFG,
+                            "why": "the drill checks restart and resume, "
+                                   "not scale"},
+           "restarts": rep.restarts, "steps_run": rep.steps_run,
+           "checkpoints": rep.checkpoints,
+           "clean_steps_run": clean_rep.steps_run,
+           "losses": [loss for _, loss in rep.history],
+           "max_loss_diff_vs_clean": loss_diff,
+           "max_param_diff_vs_clean": param_diff, "wall_s": wall,
+           "launches": launches}
+    emit(out)
+    return out
+
+
+def _train_mamba_refuses(seed: int) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step
+
+    name = "train_mamba_refuses"
+    cfg = reduced(get_config("falcon-mamba-7b"))
+    model = Transformer(cfg, device="cuda", trainable=True)
+    model.init_weights(seed)
+    opt = AdamW()
+    step = make_train_step(model, opt)
+    b = TokenPipeline(cfg.vocab_size, 2, 64, seed=seed).batch_at(0)
+    msg = None
+    try:
+        step(init_state(dict(model.named_parameters()), opt),
+             {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+    except NotImplementedError as e:
+        msg = str(e)
+    check(msg is not None and "selective scan" in msg,
+          f"{name}: a Mamba training step on the card did not refuse "
+          f"({msg!r})")
+    del model
+    torch.cuda.empty_cache()
+    out = {"phase": name, "arch": cfg.name,
+           "reduced": {"config": "models.reduced",
+                       "why": "the step must refuse before any kernel runs"},
+           "error": msg}
+    emit(out)
+    return out
+
+
+def phase_train(seed: int) -> list:
+    """The train phase (module docstring, phase 11): the lines whose
+    launches count toward the kernels' main-path totals."""
+    runs = [_train_gemma(seed)]
+    _train_check(seed)
+    runs.append(_train_moe(seed))
+    runs.append(_train_resilient(seed))
+    _train_mamba_refuses(seed)
+    return runs
+
+
 # the lm_dse phase: ``launch/dse_lm.py``'s defaults on granite-8b at full
 # width and depth, then 8 random genomes of falcon-mamba-7b
 LM_DSE = dict(n_train=48, pop_size=32, n_parents=12, n_generations=12,
@@ -3512,6 +4071,8 @@ def main(argv=None) -> int:
                 runs.append(phase_serve(arch, args.seed))
                 if arch == "granite-8b":
                     runs.append(phase_serve(arch, args.seed, approx=True))
+        if "train" in phases:
+            runs += phase_train(args.seed)
         if "service" in phases:
             dse_walls = {r["accel"]: r["wall_s"] for r in runs
                          if r.get("phase") == "dse"}

@@ -67,6 +67,11 @@ KERNELS: Dict[str, tuple] = {
     "flash_attention_sm90": ("flash_attention_sm90_fwd",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P]),
+    # (q, k, v, out, dout, dq, dk, dv, lse, delta, B, H, KVH, sq, sk, d,
+    #  causal, scale, dtype, stream)
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _I, _P]),
     # (x, dt, A, B, C, h0, y, hT, b, s, di, n, stream)
     "selective_scan": ("selective_scan_fwd",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

@@ -8,7 +8,9 @@ libraries can be compared array by array; ``spec_from_arrays`` builds
 the port's ``ApproxSpec`` from the arrays of a spec made elsewhere, so
 both packages' matmuls can be fed the same spec;
 ``lm_params_from_numpy`` turns an LM parameter tree into the port's
-``state_dict``.
+``state_dict``, and ``train_state_from_numpy`` a whole train state
+(parameters, AdamW moments and step, error-feedback residuals) into the
+port's train state tree, keyed as ``train.step.init_state``'s.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 from .kernels.approx_matmul import ApproxSpec
 
-__all__ = ["spec_from_arrays", "library_arrays", "lm_params_from_numpy"]
+__all__ = ["spec_from_arrays", "library_arrays", "lm_params_from_numpy",
+           "train_state_from_numpy"]
 
 # fixed adder probe: 16-bit operand pairs covering carry-chain corners
 _ADD_PROBE = (np.arange(0, 1 << 16, 257, dtype=np.int64),
@@ -103,4 +106,23 @@ def lm_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     out["final_norm"] = t(tree["final_norm"])
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"])
+    return out
+
+
+def train_state_from_numpy(state: Mapping, cfg) -> Dict[str, object]:
+    """The port's train state tree from the JAX package's (``init_state``
+    and ``make_train_step``'s ``{"params", "opt": {"m", "v", "step"},
+    "ef_err"?}``, given as nested dicts of numpy arrays): every tree of
+    parameter shape through ``lm_params_from_numpy``'s name map, the step
+    as an int32 scalar tensor."""
+    opt = state["opt"]
+    out: Dict[str, object] = {
+        "params": lm_params_from_numpy(state["params"], cfg),
+        "opt": {"m": lm_params_from_numpy(opt["m"], cfg),
+                "v": lm_params_from_numpy(opt["v"], cfg),
+                "step": torch.tensor(int(np.asarray(opt["step"])),
+                                     dtype=torch.int32)},
+    }
+    if "ef_err" in state:
+        out["ef_err"] = lm_params_from_numpy(state["ef_err"], cfg)
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the flash-attention forward.
+"""Plain PyTorch versions of the flash-attention forward and backward.
 
 Masked softmax attention with GQA and a causal mask shifted by
 ``q_offset``: the CPU path of ``ops.attention`` and the version the CUDA
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "NEG_INF"]
+__all__ = ["attention_ref", "attention_bwd_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -50,3 +50,22 @@ def attention_ref(
     acc = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,          # (b, h, sq, d)
+    k: torch.Tensor,          # (b, kvh, sk, d)
+    v: torch.Tensor,          # (b, kvh, sk, d)
+    dout: torch.Tensor,       # (b, h, sq, d)
+    *,
+    causal: bool = True,
+) -> tuple:
+    """(dq, dk, dv) in the inputs' dtypes: autograd through
+    ``attention_ref`` on float32 copies at q_offset 0, the version the
+    backward kernel (``csrc/flash_attention_bwd.cu``) is held against."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        out = attention_ref(qf, kf, vf, causal=causal)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

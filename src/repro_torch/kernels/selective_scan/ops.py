@@ -5,6 +5,11 @@
 tensor, or raises; on a CPU tensor it runs the plain version.
 ``impl="plain"`` runs the plain version on any device: an explicit
 choice, never a fallback.
+
+The kernel has no backward yet: a kernel call under autograd (a
+training forward of a Mamba layer on the card) raises
+``NotImplementedError``; it is not routed to the plain scan.  On the
+CPU the plain version differentiates as it is.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ def _check(x, dt, A, B, C, h0):
     tensors = [x, dt, A, B, C] + ([h0] if h0 is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("scan operands on different devices")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
 
 
 def selective_scan_kernel(x, dt, A, B, C, h0=None):
@@ -79,8 +88,13 @@ def selective_scan(
     impl: str = "kernel",     # "kernel" | "plain"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, dt, A, B, C, h0)
-    if impl == "plain" or (impl == "kernel" and x.device.type == "cpu"):
+    if impl == "plain" or (impl == "kernel" and _on_cpu(x)):
         return selective_scan_ref(x, dt, A, B, C, h0)
     if impl != "kernel":
         raise ValueError(f"unknown scan impl {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, h0)):
+        raise NotImplementedError(
+            "the selective scan has no backward kernel yet: a Mamba layer "
+            "cannot train on the card until csrc/ holds one")
     return selective_scan_kernel(x, dt, A, B, C, h0)

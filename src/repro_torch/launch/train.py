@@ -1,0 +1,137 @@
+"""Training entry point: runs end to end on the card at full size, and on the
+CPU at reduced scale.
+
+    python -m repro_torch.launch.train --arch gemma-2b --steps 12 \\
+        --batch 8 --seq 1024 --n-micro 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+        --reduced --steps 50 --batch 8 --seq 64 --device cpu
+
+Features, as the JAX package's ``launch/train.py``: deterministic data
+pipeline, AdamW, microbatch accumulation, periodic checkpointing and
+restart from the latest checkpoint, optional int8 error-feedback
+gradient compression, optional approximation policy on the FFN
+projections (the paper's technique applied to the LM).  Weights are
+random, drawn from ``seed``.  Without ``--device`` it runs on the GPU
+and raises on a machine without one.  Encoder-decoder and front-end
+archs are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import torch
+
+from ..checkpoint import ckpt
+from ..configs import get_config
+from ..data.pipeline import TokenPipeline
+from ..models import ApproxPolicy, reduced
+from ..models.transformer import Transformer
+from ..optim.adamw import AdamW
+from ..train.step import init_state, make_train_step
+
+__all__ = ["train_loop", "main"]
+
+
+def train_loop(
+    cfg,
+    *,
+    steps: int = 50,
+    batch: int = 8,
+    seq: int = 64,
+    n_micro: int = 1,
+    lr: float = 1e-3,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 25,
+    compress: bool = False,
+    policy: Optional[ApproxPolicy] = None,
+    seed: int = 0,
+    log_every: int = 10,
+    device=None,
+    history: Optional[List[dict]] = None,
+):
+    """Train ``cfg`` for ``steps`` steps; returns (state, losses).
+
+    ``history``, if given, receives one dict a step: its metrics as
+    floats and ``step_s``, the host seconds from the batch's upload to
+    the loss read back (which waits for the card)."""
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed)
+    opt = AdamW(lr=lr, warmup_steps=max(steps // 10, 1),
+                moment_dtype=cfg.moment_dtype)
+    model = Transformer(cfg, device=device, trainable=True)
+    model.init_weights(seed)
+    state = init_state(dict(model.named_parameters()), opt,
+                       compress=compress)
+    step_fn = make_train_step(model, opt, n_micro=n_micro, policy=policy,
+                              compress=compress)
+
+    start = 0
+    if ckpt_dir is not None:
+        latest = ckpt.latest_step(ckpt_dir)
+        if latest is not None:
+            ckpt.restore(ckpt_dir, latest, state)
+            start = latest
+            print(f"[train] restored checkpoint @ step {latest}")
+
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(start, steps):
+        t_step = time.perf_counter()
+        b = pipe.batch_at(step)
+        batch_dev = {k: torch.from_numpy(b[k]).to(model.device)
+                     for k in ("tokens", "labels")}
+        state, metrics = step_fn(state, batch_dev)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if history is not None:
+            history.append({"step": step, "step_s": time.perf_counter() - t_step,
+                            **{k: float(v) for k, v in metrics.items()}})
+        if step % log_every == 0 or step == steps - 1:
+            dt = time.perf_counter() - t0
+            print(f"[train] step {step:5d} loss={loss:8.4f} "
+                  f"ce={float(metrics['ce']):8.4f} "
+                  f"gnorm={float(metrics['grad_norm']):7.3f} ({dt:5.1f}s)",
+                  flush=True)
+        if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
+            ckpt.save(ckpt_dir, step + 1, state)
+    return state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--approx", default=None,
+                    help="apply a circuit to ffn projections, e.g. mul8s_trunc2")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    policy = None
+    if args.approx:
+        policy = ApproxPolicy({
+            "ffn_in": (args.approx, None), "ffn_out": (args.approx, None),
+        })
+    _, losses = train_loop(
+        cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+        n_micro=args.n_micro, lr=args.lr, ckpt_dir=args.ckpt_dir,
+        compress=args.compress, policy=policy, device=args.device,
+    )
+    print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

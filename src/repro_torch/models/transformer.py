@@ -13,6 +13,16 @@ that serves several policies from one set of weights is built with
 approximated: ``logits`` runs it exact under every policy, as the JAX
 package's ``_logits`` does.
 
+A model built with ``trainable=True`` holds every parameter as a
+master copy in ``cfg.param_dtype`` (float32, or bf16 for jamba), all
+with ``requires_grad``; every use casts to bf16 as serving's storage
+does, so the bits at use are serving's.  ``forward_train`` is its
+differentiable forward: ``(logits, aux)`` as the JAX package's
+``forward`` returns them, each layer rematerialised in the backward
+(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+does there.  Serving's ``forward`` and ``decode_step`` stay under
+``no_grad``.
+
 MoE layers return their routing beside their output; ``last_aux`` is
 the Switch load-balance loss summed over the layers of the last
 ``run_layers`` call (forward, prefill or decode; None for a model
@@ -23,10 +33,13 @@ when read, so serving, which never reads it, does not pay for it.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .approx_linear import ApproxPolicy
@@ -89,11 +102,13 @@ class Transformer(nn.Module):
     uninitialised on ``device``; seed them with ``init_weights(seed)`` or
     load a ``state_dict`` (``convert.lm_params_from_numpy``).  Projection
     weights are stored as ``policy`` needs them, or all in ``proj_dtype``
-    where given."""
+    where given; with ``trainable``, every parameter in
+    ``cfg.param_dtype``, with grad."""
 
     def __init__(self, cfg: ModelConfig, *,
                  policy: Optional[ApproxPolicy] = None, device=None,
-                 proj_dtype: Optional[torch.dtype] = None):
+                 proj_dtype: Optional[torch.dtype] = None,
+                 trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if cfg.is_encoder_decoder or cfg.frontend != "none":
@@ -117,6 +132,15 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=torch.bfloat16, device=dev),
                 requires_grad=False)
+        self.trainable = trainable
+        if trainable:
+            # master weights: re-declared (still uninitialised) in the
+            # training dtype
+            master = getattr(torch, cfg.param_dtype)
+            for mod in self.modules():
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    setattr(mod, name, nn.Parameter(torch.empty(
+                        p.shape, dtype=master, device=dev)))
         self._routings: List[Routing] = []
         inv = make_rope(cfg.resolved_head_dim, cfg.rope_theta,
                         fraction=0.5 if cfg.rope_style == "half" else 1.0)
@@ -167,7 +191,10 @@ class Transformer(nn.Module):
     # -- forward pieces ------------------------------------------------------
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.long()].to(torch.bfloat16)
+        # F.embedding, not indexing: its backward on the card sums a
+        # token's rows in a fixed order (indexing's scatters with float
+        # atomics), so a training step gives the same bits every run
+        x = F.embedding(tokens.long(), self.embed).to(torch.bfloat16)
         if self.cfg.name.startswith("gemma"):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
@@ -202,6 +229,29 @@ class Transformer(nn.Module):
         x = self.run_layers(self.embed_tokens(tokens), caches=caches,
                             impl=impl, policy=policy)
         return self.logits(x)
+
+    def forward_train(self, tokens: torch.Tensor, *, impl: str = "kernel",
+                      policy: Optional[ApproxPolicy] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Differentiable teacher-forcing forward: ((b, s, padded_vocab)
+        bf16 logits, the load-balance loss summed over the MoE layers,
+        float32, 0 without them).  Each layer keeps only its input for
+        the backward and runs again there."""
+        x = self.embed_tokens(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in self.layers:
+            fn = functools.partial(self._train_layer, layer, impl=impl,
+                                   policy=policy)
+            x, a = checkpoint(fn, x, use_reentrant=False)
+            aux = aux + a
+        return self.logits(x), aux
+
+    def _train_layer(self, layer: Layer, x: torch.Tensor, *, impl: str,
+                     policy: Optional[ApproxPolicy]):
+        x, r = layer(x, self.inv_freq, impl=impl, policy=policy)
+        if r is None:
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, moe_aux(r, self.cfg)
 
     @torch.no_grad()
     def decode_step(self, caches: Caches, tokens: torch.Tensor,

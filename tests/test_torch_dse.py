@@ -147,6 +147,14 @@ x = make_accelerator("mcm2").sample_inputs(2, seed=1)
 assert cli.serve("mcm2", x, tier="budget")["qor"] > 0
 srv.shutdown()
 mgr.shutdown()
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt, run_resilient
+from repro_torch.data import TokenPipeline
+from repro_torch.launch.train import main as train_main
+from repro_torch.optim import AdamW, ef_quantize
+train_main(["--arch", "gemma-2b", "--reduced", "--steps", "2", "--batch",
+            "2", "--seq", "8", "--n-micro", "2", "--compress", "--ckpt-dir",
+            os.path.join(tempfile.mkdtemp(), "ck"), "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LEAKED", bad)
@@ -174,6 +182,12 @@ def test_static_scan_finds_no_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # the training slice's subpackages and modules are in the scan
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+               for p in files[:-1]}
+    assert {"data/pipeline.py", "optim/adamw.py", "optim/compress.py",
+            "train/step.py", "checkpoint/ckpt.py",
+            "checkpoint/fault_tolerance.py", "launch/train.py"} <= scanned
     hits = []
     for p in files:
         for m in _FORBIDDEN.finditer(p.read_text()):
@@ -203,6 +217,7 @@ def _entry_points():
     from repro_torch.fleet.worker import FleetWorker
     from repro_torch.serving import ServingEngine
     from repro_torch.service import CampaignManager, ProcessPoolLabeler
+    from repro_torch.launch.train import train_loop
 
     return {
         "default_labeler": lambda: dse.default_labeler(acc, LIB),
@@ -225,6 +240,7 @@ def _entry_points():
             eval_backend="process"),
         "FleetWorker": lambda: FleetWorker("http://127.0.0.1:1"),
         "ServingEngine": lambda: ServingEngine(acc, LIB),
+        "train_loop": lambda: train_loop(lm, steps=1, batch=1, seq=4),
     }
 
 
@@ -235,7 +251,7 @@ def _entry_points():
                                   "lm_qor_batch", "lm_label_variants",
                                   "ProcessPoolLabeler",
                                   "process_backend_manager", "FleetWorker",
-                                  "ServingEngine"])
+                                  "ServingEngine", "train_loop"])
 def test_entry_point_without_device_raises_without_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

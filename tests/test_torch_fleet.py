@@ -24,6 +24,7 @@ from repro.core.acl.library import default_library as ref_library
 from repro_torch.accel import MCMAccelerator
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.hw import V5E
+from repro_torch.faults import FaultPlan
 from repro_torch.fleet import (
     PROTOCOL_VERSION,
     FleetCoordinator,
@@ -356,23 +357,31 @@ def test_unportable_context_stays_off_the_fleet():
 # end to end over real HTTP
 # ---------------------------------------------------------------------------
 
-def _spawn_worker(base, wid, store=None):
+def _spawn_worker(base, wid, store=None, fault_plan=None):
     cmd = [sys.executable, "-m", "repro_torch.fleet.worker",
            "--orchestrator", base, "--id", wid, "--device", "cpu",
            "--no-warm", "--max-idle-s", "120"]
     if store:
         cmd += ["--store", store]
-    return subprocess.Popen(
-        cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-        env={**os.environ, "PYTHONPATH": SRC, "OPENBLAS_NUM_THREADS": "1",
-             "OMP_NUM_THREADS": "1"},
-    )
+    env = {**os.environ, "PYTHONPATH": SRC, "OPENBLAS_NUM_THREADS": "1",
+           "OMP_NUM_THREADS": "1"}
+    if fault_plan is not None:
+        env["REPRO_FAULTS"] = fault_plan.to_json()
+    return subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL, env=env)
 
 
 def test_kill9_mid_campaign_front_is_byte_identical():
     """A worker ``kill -9``'d while it holds a lease, a second one that
     joins after the campaign started: the front is byte-identical to
-    the thread backend's, and the killed lease requeued."""
+    the thread backend's, and the killed lease requeued.
+
+    Worker A stalls in its first synthesis run (an injected latency), so
+    it still holds that lease once B has registered; A is killed only
+    then.  Killed before B's registration, A would be declared dead
+    ``heartbeat_ttl_s`` later with no live worker in the fleet whenever
+    B's start-up (a torch import, slow under a loaded host) took longer,
+    and the next batch would fall back off the fleet."""
     spec = CampaignSpec(accel="mcm1", **SMALL)
     ref_mgr = CampaignManager(eval_workers=2, campaign_workers=1,
                               device="cpu")
@@ -392,13 +401,17 @@ def test_kill9_mid_campaign_front_is_byte_identical():
     fleet = mgr.scheduler.fleet
     procs = []
     try:
-        procs.append(_spawn_worker(base, "wA"))
+        stall = FaultPlan().add("synth.compile", "latency", delay_s=300.0,
+                                times=1)
+        procs.append(_spawn_worker(base, "wA", fault_plan=stall))
         _wait_for(lambda: fleet.stats()["live"] >= 1, timeout=120,
                   what="worker A to register")
         cid = mgr.submit(spec)
         _wait_for(lambda: fleet.stats()["batches"] >= 1, timeout=120,
                   what="the first fleet batch")
         procs.append(_spawn_worker(base, "wB"))
+        _wait_for(lambda: fleet.stats()["live"] >= 2, timeout=120,
+                  what="worker B to register")
 
         def a_holds_lease():
             with fleet._cv:
