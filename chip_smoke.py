@@ -16,12 +16,16 @@ Phases, one JSON object per line on standard output:
    groups of a variant in one launch and one group at 1024^3, within
    rtol 1e-5, atol 0.5, with TF32 off; flash attention in float32 on the
    CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
-   tensor-core kernel (head dim 64 and 128, ragged and shifted-causal
-   rows included) within one bf16 rounding of the output, at the
-   prefill shape of every served arch; the attention backward
-   (``flash_attention_bwd``: dQ, dK, dV) against autograd through the
-   plain forward in float32, at the train phase's shapes and each head
-   dim, SDPA's backward as its library call; selective_scan
+   tensor-core kernel (head dim 64, 128 and 256, ragged and
+   shifted-causal rows included) within one bf16 rounding of the output,
+   at the prefill shape of every served arch, and the log-sum-exp that
+   kernel writes for the backward against a plain ``logsumexp`` of the
+   scaled, masked scores; the attention backward (dQ, dK, dV: bf16 on
+   ``flash_attention_bwd_sm90``, fed the forward kernel's log-sum-exp,
+   and launched twice at gemma-2b's shape for the same bits; float32 on
+   ``flash_attention_bwd``) against autograd through the plain forward
+   in float32, at the train phase's shapes and each head dim, SDPA's
+   backward as its library call; selective_scan
    within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at b * di > 4096,
    ragged edges of both kernels' tiling included), both timed with CUDA
    events, and where one PyTorch call computes the same function (the
@@ -143,8 +147,7 @@ Phases, one JSON object per line on standard output:
    the depth of ``SERVE_DEPTH``, in the line's ``reduced``), one model at
    a time (freed before the next): weights drawn from the seed on the
    card, then ``serve_batch(cfg, batch=8, prompt_len=1024, gen=32)``,
-   the attention kernel launched once an attention layer (gemma's head
-   dim 256 on the CUDA-core kernel, the others' on the tensor-core one).
+   the tensor-core attention kernel launched once an attention layer.
    The checks run on the first ``SERVE_CHECK_LAYERS`` layers of the same
    model (an MoE arch's routing every token to every real expert, so
    that a rounding cannot swap a token's experts; the timed request
@@ -166,8 +169,8 @@ Phases, one JSON object per line on standard output:
    lr 1e-3, warmup 1 (``TRAIN``): tokens/s, seconds a step, peak memory,
    the losses and gradient norms, the step's model FLOPs over the bf16
    peak; gates: the last loss below the first, nothing NaN, the forward
-   kernel launched twice (remat) and ``flash_attention_bwd`` once an
-   attention layer a micro-batch pass.  ``train_check``: one step's loss,
+   kernel launched twice (remat) and ``flash_attention_bwd_sm90`` once
+   an attention layer a micro-batch pass.  ``train_check``: one step's loss,
    every gradient and the global gradient norm on gemma-2b's first 2
    layers at full width, kernels against the plain attention, within
    max(floor, 2 x the spread the JAX model code's own form of attention
@@ -318,9 +321,8 @@ SERVE_DEPTH = {"deepseek-67b": 44, "phi3.5-moe-42b-a6.6b": 26}
 SERVE_CHECK_LAYERS = 4
 
 # flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label);
-# float32 and bf16 at d = 256 run the CUDA-core kernel, bf16 at d = 64
-# and 128 the tensor-core one (ops.KERNEL_ROUTES); one row at least for
-# every route of that table
+# float32 runs the CUDA-core kernel, bf16 the tensor-core one
+# (ops.KERNEL_ROUTES); one row at least for every route of that table
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, 0, "float32", "JAX test shape"),
     (1, 4, 4, 256, 256, 64, 0, "float32", "JAX test shape"),
@@ -336,12 +338,11 @@ FLASH_CASES = [
     (2, 32, 8, 32, 32, 128, 0, "bfloat16",
      "granite-8b LM DSE forward (b 2, s 32): one partial query tile"),
     (1, 4, 4, 256, 256, 64, 0, "bfloat16", "head dim 64"),
-    (1, 8, 8, 512, 512, 256, 0, "bfloat16",
-     "head dim 256 (CUDA-core route)"),
+    (1, 8, 8, 512, 512, 256, 0, "bfloat16", "head dim 256"),
     # the prefills of the serve phases' other archs (phi3.5-moe's is
     # granite-8b's shape)
     (8, 8, 1, 1024, 1024, 256, 0, "bfloat16",
-     "gemma-2b prefill, MQA, head dim 256 (CUDA-core route)"),
+     "gemma-2b prefill, MQA, head dim 256"),
     (8, 32, 2, 1024, 1024, 128, 0, "bfloat16",
      "chatglm3-6b prefill, GQA 32/2"),
     (8, 64, 8, 1024, 1024, 128, 0, "bfloat16",
@@ -354,7 +355,8 @@ FLASH_CASES = [
 # flash-attention backward rows: (b, h, kvh, s, d, causal, dtype, label);
 # the training shapes of the train phase (gemma-2b's micro-batch, d=256
 # MQA; granite-moe-3b's, d=64 GQA 24/8), every head dim in both dtypes,
-# GQA, a ragged length and a non-causal row
+# GQA, a ragged length and a non-causal row; bf16 runs the tensor-core
+# kernel, float32 the CUDA-core one (ops.BWD_ROUTES)
 FLASH_BWD_CASES = [
     (1, 4, 4, 128, 64, True, "float32", "JAX test shape"),
     (1, 8, 2, 1000, 128, True, "float32", "ragged, GQA 8/2"),
@@ -362,11 +364,23 @@ FLASH_BWD_CASES = [
     (1, 4, 4, 256, 256, True, "float32", "head dim 256"),
     (1, 4, 4, 256, 64, True, "bfloat16", "head dim 64"),
     (1, 8, 2, 1000, 128, True, "bfloat16", "ragged, GQA 8/2, head dim 128"),
+    (1, 4, 2, 200, 128, False, "bfloat16", "ragged, non-causal, GQA 4/2"),
     (4, 8, 1, 1024, 256, True, "bfloat16",
      "gemma-2b training micro-batch (4 x 1024), MQA, head dim 256"),
     (2, 24, 8, 1024, 64, True, "bfloat16",
      "granite-moe-3b training micro-batch (2 x 1024), GQA 24/8"),
 ]
+# the backward row launched twice for the same bits (no atomics:
+# train_resilient's bit-equal resume rests on it)
+FLASH_BWD_SAME_BITS = (4, 8, 1, 1024, 256)
+# log-sum-exp rows (b, h, kvh, s, d, label): what the tensor-core forward
+# writes for the backward against a plain logsumexp; both float32, the
+# kernel's scores scaled after the bf16 product and the plain ones before
+FLASH_LSE_CASES = [
+    (4, 8, 1, 1024, 256, "gemma-2b training micro-batch, MQA"),
+    (1, 8, 2, 1000, 128, "ragged, GQA 8/2"),
+]
+FLASH_LSE_RTOL, FLASH_LSE_ATOL = 1e-5, 1e-5
 # selective-scan rows: (b, s, di, n); the JAX tests' shapes, then
 # falcon-mamba-7b's prefill at the serving batch, then ragged edges of the
 # kernel's tiling (tiles of 16 steps in groups of 4, blocks of 64
@@ -396,17 +410,16 @@ MAIN_PATH = {
     "serve_granite-8b": ("flash_attention_sm90",),
     "serve_granite-8b_approx": ("flash_attention_sm90",),
     "serve_falcon-mamba-7b": ("selective_scan",),
-    # gemma's head dim 256 takes the CUDA-core kernel (ops.KERNEL_ROUTES)
-    "serve_gemma-2b": ("flash_attention",),
+    "serve_gemma-2b": ("flash_attention_sm90",),
     "serve_chatglm3-6b": ("flash_attention_sm90",),
     "serve_deepseek-67b": ("flash_attention_sm90",),
     "serve_granite-moe-3b-a800m": ("flash_attention_sm90",),
     "serve_phi3.5-moe-42b-a6.6b": ("flash_attention_sm90",),
-    # training: the forward kernel of the arch's head dim, twice a layer
-    # with remat, and the backward kernel
-    "train_gemma-2b": ("flash_attention", "flash_attention_bwd"),
-    "train_moe": ("flash_attention_sm90", "flash_attention_bwd"),
-    "train_resilient": ("flash_attention_sm90", "flash_attention_bwd"),
+    # training: the forward kernel, twice a layer with remat, and the
+    # backward kernel (bf16: ops.KERNEL_ROUTES, ops.BWD_ROUTES)
+    "train_gemma-2b": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    "train_moe": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    "train_resilient": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
     "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
 # rank_k launches of one variant's deployment graph (``build_deploy``):
@@ -763,6 +776,7 @@ def phase_kernels(seed: int) -> list:
     rows += _circuit_rows(dev, lib)
     rows += _lut_rows(rng, dev, lib, x9, w9, specs)
     rows += _flash_rows(rng, dev)
+    rows += _flash_lse_rows(rng, dev)
     rows += _flash_bwd_rows(rng, dev)
     rows += _scan_rows(rng, dev)
     return rows
@@ -1217,26 +1231,110 @@ def _close_to_max(rtol, frac):
     return compare
 
 
+def _flash_lse_rows(rng, dev) -> list:
+    """The log-sum-exp the tensor-core forward writes for the backward,
+    against ``attention_lse_ref``: the same natural-log, scaled units
+    the backward's P = exp(scale q.k - lse) assumes, which no CPU test
+    can show."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_kernel,
+    )
+
+    rows = []
+    for b, h, kvh, s, d, label in FLASH_LSE_CASES:
+        def draw(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(
+                    dev, torch.bfloat16)
+        q, k, v = draw(b, h, s, d), draw(b, kvh, s, d), draw(b, kvh, s, d)
+        pairs = _causal_pairs(s, s, 0, True) * b * h
+        ops = 4.0 * d * pairs
+        # q, k, v read; the output and the log-sum-exp written
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
+        rows.append(_kernel_row(
+            "flash_attention_sm90",
+            f"b={b} h={h} kvh={kvh} s={s} d={d} bf16 causal, log-sum-exp "
+            f"output ({label})",
+            "src/repro_torch/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention/kernel.py:77",
+            lambda q=q, k=k, v=v: flash_attention_kernel(
+                q, k, v, causal=True, with_lse=True)[1],
+            lambda q=q, k=k: attention_lse_ref(q, k, causal=True),
+            _close(FLASH_LSE_RTOL, FLASH_LSE_ATOL),
+            nbytes=nbytes, ops=ops, repeats=10,
+            ops_per_s=TENSOR_CORE_BF16_OPS_PER_S, exps=float(pairs)))
+    return rows
+
+
+# the tensor-core backward's launches, by kernel name in a trace
+BWD_SM90_LAUNCHES = ("bwd_delta_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
+                     "bwd_reduce_kernel")
+
+
+def _bwd_split(kernel, calls: int = 5) -> dict:
+    """Device ms of each of the tensor-core backward's launches, a call's
+    mean over ``calls`` profiled calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernel()
+        torch.cuda.synchronize()
+    split = {}
+    for name in BWD_SM90_LAUNCHES:
+        sec, _ = _device_time(prof, name)
+        split[name] = sec * 1e3 / calls if sec else None
+    return split
+
+
 def _flash_bwd_rows(rng, dev) -> list:
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        attention_bwd_ref, flash_attention_bwd_kernel, flash_attention_kernel,
+        attention_bwd_ref, bwd_route, flash_attention_bwd_kernel,
+        flash_attention_kernel,
     )
 
     rows = []
     for b, h, kvh, s, d, causal, dtype, label in FLASH_BWD_CASES:
         dt = getattr(torch, dtype)
         bf16 = dt == torch.bfloat16
+        route = bwd_route(dt, d)
 
         def draw(*shape):
             return torch.from_numpy(
                 rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
         q, k, v, do = (draw(b, h, s, d), draw(b, kvh, s, d),
                        draw(b, kvh, s, d), draw(b, h, s, d))
-        out = flash_attention_kernel(q, k, v, causal=causal)
+        # the tensor-core backward takes the log-sum-exp the forward
+        # kernel wrote, never one computed in plain torch
+        lse = None
+        if route == "flash_attention_bwd_sm90":
+            out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                              with_lse=True)
+        else:
+            out = flash_attention_kernel(q, k, v, causal=causal)
+
+        def kernel(q=q, k=k, v=v, out=out, do=do, c=causal, lse=lse):
+            return flash_attention_bwd_kernel(q, k, v, out, do, causal=c,
+                                              lse=lse)
+        extra = {}
+        if (b, h, kvh, s, d) == FLASH_BWD_SAME_BITS and bf16:
+            first, second = kernel(), kernel()
+            same = all(bool(torch.equal(x, y))
+                       for x, y in zip(first, second))
+            check(same, f"{route}[{label}]: two launches on the same inputs "
+                        "differ")
+            extra["same_bits_twice"] = same
+            extra["device_ms_by_launch"] = _bwd_split(kernel)
+            del first, second
         # SDPA's backward alone: its forward runs once, outside the timing
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -1244,17 +1342,22 @@ def _flash_bwd_rows(rng, dev) -> list:
                                               enable_gqa=True)
         pairs = _causal_pairs(s, s, 0, causal) * b * h
         esz = q.element_size()
+        if bf16:
+            # bf16 operands: the bound is the card's bf16 tensor-core
+            # rate; the float32 CUDA-core figure is kept beside it
+            extra["cuda_core_bound_ms"] = max(
+                esz * 4.0 * (q.numel() + k.numel()) / HBM_BYTES_PER_S,
+                10.0 * d * pairs / CUDA_CORE_OPS_PER_S) * 1e3
         rows.append(_kernel_row(
-            "flash_attention_bwd",
+            route,
             f"b={b} h={h} kvh={kvh} s={s} d={d} "
             f"{'bf16' if bf16 else 'f32'} "
             f"{'causal' if causal else 'non-causal'} ({label})",
-            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            f"src/repro_torch/csrc/{route}.cu",
             "none (the gradient of src/repro/kernels/flash_attention/"
             "kernel.py:77, which has no backward; the JAX package "
             "differentiates its chunked XLA form)",
-            lambda q=q, k=k, v=v, out=out, do=do, c=causal:
-                flash_attention_bwd_kernel(q, k, v, out, do, causal=c),
+            kernel,
             lambda q=q, k=k, v=v, do=do, c=causal: attention_bwd_ref(
                 q, k, v, do, causal=c),
             (_close_to_max(FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_FRAC) if bf16
@@ -1268,18 +1371,12 @@ def _flash_bwd_rows(rng, dev) -> list:
                 torch.autograd.grad(lout, (ql, kl, vl), do,
                                     retain_graph=True)),
             library_compare=_close_to_max(0.0, SDPA_BWD_FRAC),
-            # bf16 operands: the bound is the card's bf16 tensor-core
-            # rate, whatever units this kernel runs its products on; the
-            # float32 CUDA-core figure is kept beside it
-            extra=({"cuda_core_bound_ms": max(
-                esz * 4.0 * (q.numel() + k.numel()) / HBM_BYTES_PER_S,
-                10.0 * d * pairs / CUDA_CORE_OPS_PER_S) * 1e3} if bf16
-                else None),
+            extra=extra or None,
             ops_per_s=(TENSOR_CORE_BF16_OPS_PER_S if bf16
                        else CUDA_CORE_OPS_PER_S),
             exps=float(pairs),   # one exponential a visible pair at least
         ))
-        del out, lout, ql, kl, vl
+        del out, lout, ql, kl, vl, lse
     return rows
 
 
@@ -2383,7 +2480,6 @@ def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
     from repro_torch.train.serve import make_decode_step, make_prefill_step
 
     kname = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
-             "flash_attention": "flash_fwd_kernel",
              "selective_scan": "selective_scan_kernel"}[kernel]
     b, L = prompts.shape
     caches = model.init_caches(b, L + steps + 1)
@@ -2532,7 +2628,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
           f"{name}: prompt not carried into the tokens")
     kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
     n_attn = sum(k.mixer == "attn" for k in kinds)
-    n_layers = {"flash_attention_sm90": n_attn, "flash_attention": n_attn,
+    n_layers = {"flash_attention_sm90": n_attn,
                 "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
     for k in MAIN_PATH[name]:
         check(launches[k] == n_layers[k],
@@ -2683,12 +2779,14 @@ def _train_launch_check(name, cfg, launches, micro_passes: int) -> dict:
     backward kernel once."""
     import torch
 
-    from repro_torch.kernels.flash_attention import kernel_route
+    from repro_torch.kernels.flash_attention import bwd_route, kernel_route
 
     fwd = kernel_route(torch.bfloat16, cfg.resolved_head_dim)
-    check(fwd in MAIN_PATH[name], f"{name}: forward route {fwd}")
+    bwd = bwd_route(torch.bfloat16, cfg.resolved_head_dim)
+    check(fwd in MAIN_PATH[name] and bwd in MAIN_PATH[name],
+          f"{name}: routes {fwd}, {bwd}")
     want = {fwd: 2 * _attn_layers(cfg) * micro_passes,
-            "flash_attention_bwd": _attn_layers(cfg) * micro_passes}
+            bwd: _attn_layers(cfg) * micro_passes}
     for k, n in want.items():
         check(launches[k] == n,
               f"{name}: {k} launched {launches[k]} times, not {n} (attention "
@@ -2838,9 +2936,9 @@ def _train_check(seed: int) -> dict:
               "grad_norm_rel": TRAIN_GRAD_NORM_FLOOR,
               "grad_max_rel": TRAIN_GRAD_MAX_FLOOR}
     tol = {k: max(floors[k], TRAIN_SPREAD_FACTOR * spread[k]) for k in err}
-    fwd = "flash_attention"
+    fwd, bwd = MAIN_PATH["train_gemma-2b"]
     check(launches[fwd] == TRAIN_CHECK_LAYERS * 2
-          and launches["flash_attention_bwd"] == TRAIN_CHECK_LAYERS,
+          and launches[bwd] == TRAIN_CHECK_LAYERS,
           f"{name}: launches {launches}")
     out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN["seq"],

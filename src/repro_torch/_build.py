@@ -8,9 +8,10 @@ own shared library with a plain C interface, loaded with ``ctypes``:
          src/repro_torch/csrc/<name>.cu
 
 The output lands in ``build/repro_torch/`` at the root of the checkout,
-named by the source's content hash, so an edited source never loads a
-stale library.  ``build()`` starts one ``nvcc`` per missing library, all
-at once, and waits for them.  Every C entry point takes its pointers and
+named by the content hash of the source and the shared headers
+(``csrc/*.cuh``), so an edited source never loads a stale library.
+``build()`` starts one ``nvcc`` per missing library, all at once, and
+waits for them.  Every C entry point takes its pointers and
 the stream as ``void*`` and returns ``cudaGetLastError()`` after its
 launch; ``call`` raises if that is not 0.  A launch never waits for the
 card.
@@ -58,20 +59,24 @@ KERNELS: Dict[str, tuple] = {
     # (x, w, narrowed table, out, m, n, k, offset, table minimum, stream)
     "lut_matmul_sm90": ("lut_matmul_sm90",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale,
-    #  dtype, stream)
+    # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale, stream)
     "flash_attention": ("flash_attention_fwd",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _I, _P]),
-    # (q, k, v, out, B, H, KVH, sq, sk, d, causal, q_offset, scale, stream)
+                         _P]),
+    # (q, k, v, out, lse or null, B, H, KVH, sq, sk, d, causal, q_offset,
+    #  scale, stream)
     "flash_attention_sm90": ("flash_attention_sm90_fwd",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _P]),
+                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _P]),
     # (q, k, v, out, dout, dq, dk, dv, lse, delta, B, H, KVH, sq, sk, d,
-    #  causal, scale, dtype, stream)
+    #  causal, scale, stream)
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _I, _P]),
+                             _I, _I, _I, _I, _I, _F, _P]),
+    # (q, k, v, out, dout, lse, dq, dk, dv, delta, dk_part, dv_part, B, H,
+    #  KVH, s, d, causal, scale, stream)
+    "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90",
+                                 [_P] * 12 + [_I] * 6 + [_F, _P]),
     # (x, dt, A, B, C, h0, y, hT, b, s, di, n, stream)
     "selective_scan": ("selective_scan_fwd",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -112,7 +117,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in [SRC_DIR / f"{name}.cu"]
+                   + sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -6,16 +6,12 @@
 //
 // Replaces: flash_attention_fwd (body _flash_kernel),
 //   src/repro/kernels/flash_attention/kernel.py, in the JAX package.
-//   Same arithmetic: q is cast to float32 and then scaled in float32,
-//   scores, running max, exp and sums are float32, masked scores are
-//   -1e30, the output is acc / max(l, 1e-30) in q's dtype.  The JAX
-//   model code runs the chunked XLA form of the same function, which
-//   scales q in the input dtype before the cast; that one bf16 rounding
-//   of difference is absorbed by the model-level tolerance.
+//   Same arithmetic: q scaled in float32, scores, running max, exp and
+//   sums in float32, masked scores -1e30, the output acc / max(l, 1e-30).
 //
-// Route: ops.py's dispatch table sends float32 inputs (any head dim) and
-// bf16 at d = 256 here; bf16 at d = 64 and 128, which the models serve,
-// runs on the tensor cores in flash_attention_sm90.cu.
+// Route: ops.py's dispatch table sends float32 inputs (any head dim)
+// here; bf16, which the models serve, runs on the tensor cores in
+// flash_attention_sm90.cu.
 //
 // What bounds it on an H100: operations.  At d=128 (b=1, H=8, KVH=2,
 // s=1000, causal, float32) the two products are ~2 GFLOP of fp32 FMAs,
@@ -35,7 +31,6 @@
 // so this gives the same result) and are scheduled heaviest first.  The
 // kv head is computed per block, so repeat_kv is never materialised.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -48,14 +43,6 @@ constexpr int kRows = kBQ / kWarps;    // query rows per warp
 constexpr int kCols = kBK / 32;        // keys per lane per tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
@@ -73,11 +60,12 @@ struct Layout {
   static_assert(D % 32 == 0 && kW >= 2, "head dim must be 64, 128 or 256");
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KVH,
-                 int sq, int sk, int causal, int q_offset, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int KVH, int sq, int sk, int causal, int q_offset,
+                 float scale) {
   using L = Layout<D>;
   constexpr int W = L::kW, G = L::kG, KS = L::kKStride;
   extern __shared__ __align__(16) float smem[];
@@ -100,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qi = q0 + r;
-    Qs[i] = qi < sq ? to_float(q[qbase + (long long)qi * D + c]) * scale
+    Qs[i] = qi < sq ? q[qbase + (long long)qi * D + c] * scale
                     : 0.f;
   }
 
@@ -129,8 +117,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kj < sk) {
         const long long off = kbase + (long long)kj * D + c;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       Ks[r * KS + c] = kv;
       Vs[r * D + c] = vv;
@@ -233,45 +221,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + row0 + i;
     if (qi >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* dst = o + qbase + (long long)qi * D;
+    float* dst = o + qbase + (long long)qi * D;
 #pragma unroll
     for (int gg = 0; gg < G; ++gg)
 #pragma unroll
       for (int w = 0; w < W; ++w)
-        store(dst + (lane + 32 * gg) * W + w, acc[i][gg][w] / denom);
+        dst[(lane + 32 * gg) * W + w] = acc[i][gg][w] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KVH, int sq, int sk, int causal, int q_offset,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KVH, sq, sk, causal,
-      q_offset, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KVH, sq, sk,
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int H, int KVH, int sq, int sk, int d, int causal,
                int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
+      return launch<64>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
                            scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
+      return launch<128>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
                             scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
+      return launch<256>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
                             scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -280,22 +267,16 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns cudaGetLastError() after the
-// launch (or the error that kept it from launching).
+// float32 q (B, H, sq, d), k and v (B, KVH, sk, d), out like q.  Returns
+// cudaGetLastError() after the launch (or the error that kept it from
+// launching).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int KVH, int sq, int sk, int d, int causal,
-                                   int q_offset, float scale, int dtype,
-                                   void* stream) {
+                                   int q_offset, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || sq <= 0 || sk <= 0 ||
       q_offset < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, H, KVH, sq, sk, d, causal,
-                             q_offset, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, sq, sk, d,
-                                     causal, q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d(q, k, v, o, B, H, KVH, sq, sk, d, causal, q_offset,
+                    scale, static_cast<cudaStream_t>(stream));
 }

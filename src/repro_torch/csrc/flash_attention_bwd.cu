@@ -11,26 +11,23 @@
 //
 // Replaces: no TPU kernel.  The JAX package trains through the chunked
 //   XLA form of attention under autodiff and has no backward kernel; the
-//   port's training forward runs its own forward kernels
-//   (flash_attention_sm90.cu, flash_attention.cu, which replace
-//   flash_attention_fwd, src/repro/kernels/flash_attention/kernel.py),
-//   and this is their gradient.  The plain version is autograd through
+//   port's float32 training forward runs flash_attention.cu (which
+//   replaces flash_attention_fwd,
+//   src/repro/kernels/flash_attention/kernel.py), and this is its
+//   gradient.  bf16 takes flash_attention_bwd_sm90.cu on the tensor
+//   cores (ops.py's BWD_ROUTES).  The plain version is autograd through
 //   kernels/flash_attention/ref.py attention_ref in float32.
 //
-// Arithmetic: inputs float32 or bf16, everything float32 inside: q is
-// cast to float32 and then scaled (as the forward kernels do), lse_i is
-// recomputed from the scores (the forward kernels keep their
-// signatures and do not return it), D_i is taken from the forward's
-// output O in its own dtype, as FlashAttention-2 does.  Outputs are
-// rounded once to the input dtype.
+// Arithmetic: float32 throughout; lse_i is recomputed from the scores
+// (the CUDA-core forward does not return it), D_i is taken from the
+// forward's output O, as FlashAttention-2 does.
 //
 // What bounds it on an H100: operations.  The least work is five
 // products of 2 d flops a visible (query, key) pair (the scores again,
 // dP, dV, dK, dQ): 2.5x the forward's two.  This first kernel runs them
 // on the CUDA cores (67 TFLOP/s float32) and does 16 d flops a pair: the
 // scores twice more (once for lse in the dQ kernel, once in the dK/dV
-// kernel) and dP twice (once in each kernel).  Tensor cores (wgmma) and
-// TMA are later work.
+// kernel) and dP twice (once in each kernel).
 //
 // Design: two kernels, one launch each, on the caller's stream, in
 // order; no atomics, so the result is the same bits on every run.
@@ -52,7 +49,6 @@
 // a block may have.  Any sq, sk >= 1 is taken; loads and scores are
 // masked at the ragged edges.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,14 +69,6 @@ constexpr int kKKeys = kKBlock / kWarps;
 constexpr int kKTile = 64;
 constexpr int kKCols = kKTile / 32;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
@@ -142,11 +130,11 @@ struct DkvLayout {
   static_assert(kBytes <= 232448, "dK/dV stage exceeds 227 KB");
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout, float* __restrict__ dq,
                     float* __restrict__ lse_out, float* __restrict__ d_out,
                     int H, int KVH, int sq, int sk, int causal, float scale) {
   constexpr int W = Cols<D>::kW, G = Cols<D>::kG, KS = Cols<D>::kPad;
@@ -171,8 +159,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kQBlock * D; i += kThreads) {
     const int qi = q0 + i / D;
     const long long off = qbase + (long long)q0 * D + i;
-    Qs[i] = qi < sq ? to_float(q[off]) * scale : 0.f;
-    dOs[i] = qi < sq ? to_float(dout[off]) : 0.f;
+    Qs[i] = qi < sq ? q[off] * scale : 0.f;
+    dOs[i] = qi < sq ? dout[off] : 0.f;
   }
   __syncthreads();
 
@@ -184,7 +172,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi < sq)
       for (int c = lane; c < D; c += 32)
         acc = fmaf(dOs[(row0 + i) * D + c],
-                   to_float(o[qbase + (long long)qi * D + c]), acc);
+                   o[qbase + (long long)qi * D + c], acc);
     delta[i] = warp_sum(acc);
   }
 
@@ -204,7 +192,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       const int kj = k0 + r;
       Ks[r * KS + c] =
-          kj < sk ? to_float(k[kbase + (long long)kj * D + c]) : 0.f;
+          kj < sk ? k[kbase + (long long)kj * D + c] : 0.f;
     }
     __syncthreads();
     float s[kQRows][kQCols];
@@ -264,8 +252,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kj < sk) {
         const long long off = kbase + (long long)kj * D + c;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       Ks[r * KS + c] = kv;
       Vs[r * KS + c] = vv;
@@ -337,12 +325,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kQRows; ++i) {
     const int qi = q0 + row0 + i;
     if (qi >= sq) continue;
-    T* dst = dq + qbase + (long long)qi * D;
+    float* dst = dq + qbase + (long long)qi * D;
 #pragma unroll
     for (int gg = 0; gg < G; ++gg)
 #pragma unroll
       for (int w = 0; w < W; ++w)
-        store(dst + (lane + 32 * gg) * W + w, acc[i][gg][w] * scale);
+        dst[(lane + 32 * gg) * W + w] = acc[i][gg][w] * scale;
     if (lane == 0) {
       lse_out[rbase + qi] = lse[i];
       d_out[rbase + qi] = delta[i];
@@ -350,13 +338,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int KVH, int sq, int sk,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int H, int KVH, int sq, int sk,
                       int causal, float scale) {
   constexpr int W = Cols<D>::kW, G = Cols<D>::kG, QS = Cols<D>::kPad;
   extern __shared__ __align__(16) float smem[];
@@ -381,8 +371,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kKBlock * D; i += kThreads) {
     const int kj = k0 + i / D;
     const long long off = kbase + (long long)k0 * D + i;
-    Ks[i] = kj < sk ? to_float(k[off]) : 0.f;
-    Vs[i] = kj < sk ? to_float(v[off]) : 0.f;
+    Ks[i] = kj < sk ? k[off] : 0.f;
+    Vs[i] = kj < sk ? v[off] : 0.f;
   }
 
   float acc_k[kKKeys][G][W], acc_v[kKKeys][G][W];
@@ -407,8 +397,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float qv = 0.f, dv_ = 0.f;
         if (qi < sq) {
           const long long off = qbase + (long long)qi * D + c;
-          qv = to_float(q[off]) * scale;
-          dv_ = to_float(dout[off]);
+          qv = q[off] * scale;
+          dv_ = dout[off];
         }
         Qs[r * QS + c] = qv;
         dOs[r * QS + c] = dv_;
@@ -505,13 +495,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int w = 0; w < W; ++w) {
         const int col = (lane + 32 * gg) * W + w;
-        store(dk + off + col, acc_k[kk][gg][w]);
-        store(dv + off + col, acc_v[kk][gg][w]);
+        dk[off + col] = acc_k[kk][gg][w];
+        dv[off + col] = acc_v[kk][gg][w];
       }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
            void* delta, int B, int H, int KVH, int sq, int sk, int causal,
@@ -519,48 +509,47 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   constexpr size_t smem_q = DqLayout<D>::kBytes;
   constexpr size_t smem_k = DkvLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_k);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((unsigned)((sq + kQBlock - 1) / kQBlock), (unsigned)H,
                     (unsigned)B);
-  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, smem_q, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<T*>(dq),
+  flash_bwd_dq_kernel<D><<<grid_q, kThreads, smem_q, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<float*>(dq),
       static_cast<float*>(lse), static_cast<float*>(delta), H, KVH, sq, sk,
       causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_k((unsigned)((sk + kKBlock - 1) / kKBlock), (unsigned)KVH,
                     (unsigned)B);
-  flash_bwd_dkdv_kernel<T, D><<<grid_k, kThreads, smem_k, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem_k, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, KVH, sq, sk, causal,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, KVH, sq, sk, causal,
       scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const void* o,
                const void* dout, void* dq, void* dk, void* dv, void* lse,
                void* delta, int B, int H, int KVH, int sq, int sk, int d,
                int causal, float scale, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
+      return launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
                            KVH, sq, sk, causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
+      return launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
                             KVH, sq, sk, causal, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
+      return launch<256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
                             KVH, sq, sk, causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -570,25 +559,17 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, dout, dq: (B, H, sq, d); k, v, dk, dv: (B, KVH, sk, d), all
-// contiguous in one dtype (0 float32, 1 bfloat16); lse, delta: (B, H, sq)
-// float32 scratch.  Returns cudaGetLastError() after the two launches (or
-// the error that kept one from launching).
+// float32, contiguous; lse, delta: (B, H, sq) float32 scratch.  Returns
+// cudaGetLastError() after the two launches (or the error that kept one
+// from launching).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* lse, void* delta, int B,
                                    int H, int KVH, int sq, int sk, int d,
-                                   int causal, float scale, int dtype,
-                                   void* stream) {
+                                   int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || sq <= 0 || sk <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
-                             KVH, sq, sk, d, causal, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse,
-                                     delta, B, H, KVH, sq, sk, d, causal,
-                                     scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, KVH, sq,
+                    sk, d, causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -6,8 +6,8 @@
 //
 // Replaces: flash_attention_fwd (body _flash_kernel),
 //   src/repro/kernels/flash_attention/kernel.py, in the JAX package, for
-//   bf16 inputs at head dim 64 and 128 (ops.py's dispatch table sends
-//   float32 and other head dims to csrc/flash_attention.cu).  Same
+//   bf16 inputs at head dim 64, 128 and 256 (ops.py's dispatch table
+//   sends float32 to csrc/flash_attention.cu).  Same
 //   function: scores, running max, exp and sums in float32, masked
 //   scores -1e30, output acc / max(l, 1e-30) rounded to bf16.  Two
 //   roundings differ from the plain version: the scale is applied to the
@@ -22,11 +22,20 @@
 // H=32, KVH=8, s=1024, d=128, causal) the two products are ~69 GFLOP
 // against ~67 MB of q/k/v/out; on the tensor cores (989 TFLOP/s bf16
 // dense) that is 0.07 ms, with the hi/lo split 1.5x the products.
+// gemma-2b's prefill (b=8, H=8, KVH=1, s=1024, d=256) is ~34 GFLOP:
+// 0.035 ms.
 //
-// Design: one CTA of 288 threads per (128-query tile, head, batch row),
-// heaviest causal tiles first: two consumer warpgroups of 64 query rows
-// each, plus one producer warp.  The producer loads Q once, then keeps a
-// ring of kStages (K, V) tiles of 64 keys in flight with TMA
+// Log-sum-exp: given a pointer (the autograd path), the kernel also
+// writes lse_i = m_i + log(l_i) in float32, natural log of the scaled,
+// masked scores, which the backward (flash_attention_bwd_sm90.cu) takes
+// instead of recomputing the scores for it; inference passes null and
+// pays nothing.
+//
+// Design: one CTA of 288 threads (384 at d = 256, below) per (128-query
+// tile, head, batch row), heaviest causal tiles first: two consumer
+// warpgroups of 64 query rows each, plus one producer warp.  The
+// producer loads Q once, then keeps a ring of kStages (K, V) tiles of
+// 64 keys in flight with TMA
 // (cp.async.bulk.tensor, 3-d maps (d, s, b*heads) so rows past s are
 // zero-filled per head), each stage completed on a "full" mbarrier and
 // released by the 8 consumer warps on an "empty" one.  Tiles are stored
@@ -43,25 +52,35 @@
 // tiles past its own diagonal; the CTA's key loop stops at its last
 // row's diagonal.  GQA maps query head h to kv head h / (H / KVH) in
 // the K/V coordinates; no repeated copy is made.
+//
+// Head dim 256: the ring is a per-head-dim constant, 4 stages at d = 64
+// and 128, 2 at d = 256, where a stage (K and V, 64 keys) is 64 KB and Q
+// another 64 KB (193 KB with the barriers and the 1 KB alignment).  The
+// registers: a consumer thread holds its 64 x 256 float32 O in 128
+// registers, S in 32 and P hi/lo in 32 (S is dead once P is built).
+// ptxas allots registers to a 288-thread CTA as if it had 384 threads,
+// 168 a thread, and the d = 256 working set spilled to local memory.  Of
+// the three ways to make room (setmaxnreg, a 64-query CTA with one
+// consumer warpgroup, fewer keys per tile) d = 256 takes setmaxnreg:
+// the producer becomes a warpgroup that keeps 24 registers a thread, the
+// two consumer warpgroups take 240.  A 64-query CTA would load each K/V
+// tile for half as many queries and leave one warpgroup's softmax
+// unhidden by the other's products; fewer keys per tile frees only the
+// 32 registers of S and P, not enough under 168.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int kBQ = 128;             // query rows per CTA
 constexpr int kBK = 64;              // keys per K/V tile
-constexpr int kStages = 4;           // depth of the K/V ring
 constexpr int kConsumerWarps = 8;    // two warpgroups
-constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
-constexpr int kRowBytes = 128;       // one swizzled row: 64 bf16 columns
-constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct Smem {
   static constexpr int kPanels = D / 64;                  // 64-column panels
+  // depth of the K/V ring: a d = 256 stage is 64 KB, and Q another 64
+  static constexpr int kStages = D == 256 ? 2 : 4;
   static constexpr int kQPanel = kBQ * kRowBytes;         // 16 KB
   static constexpr int kKVPanel = kBK * kRowBytes;        // 8 KB
   static constexpr int kQBytes = kPanels * kQPanel;
@@ -69,141 +88,27 @@ struct Smem {
   static constexpr int kBarrierOff = kQBytes + kStages * kStageBytes;
   static constexpr int kBytes = kBarrierOff + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;   // base aligned up to 1 KB
-  static_assert(D == 64 || D == 128, "tensor-core kernel takes d = 64, 128");
+  // the producer: one warp, or at d = 256 a warpgroup whose registers
+  // go to the consumers (setmaxnreg: 24 a thread for it, 240 for them)
+  static constexpr bool kSplitRegs = D == 256;
+  static constexpr int kThreads = 32 * kConsumerWarps + (kSplitRegs ? 128 : 32);
+  static_assert(D == 64 || D == 128 || D == 256,
+                "tensor-core kernel takes d = 64, 128, 256");
   static_assert(kAlloc <= 232448, "shared stage exceeds 227 KB");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA -----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// --- wgmma -------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128B swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 at bits 62-63.
-// Every tile base is 1 KB aligned, so the base-offset field stays 0 and a
-// K-major operand's k-steps inside the 128-byte row advance the address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep registers that an in-flight wgmma reads or writes from being
-// moved across this point
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_ACC32(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
-      "+f"(d[31])
-#define WG_REGS32                                                 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
-  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
-  "%26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) . B (16 x 64, smem,
-// K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}"
-      : WG_ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
-// MN-major: transpose bit set)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // --- the kernel ---------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Smem<D>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      __nv_bfloat16* __restrict__ o, int H, int KVH, int sq,
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int KVH, int sq,
                       int sk, int causal, int q_offset, float scale) {
   using S = Smem<D>;
+  constexpr int kStages = S::kStages;
   constexpr int NP = S::kPanels;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -227,13 +132,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bars + 8 * (kStages + st), kConsumerWarps);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {
+  if (warp >= kConsumerWarps) {
     // producer: Q once, then the K/V ring
-    if (lane == 0) {
+    if constexpr (S::kSplitRegs) regs_dec<24>();
+    if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(q_bar, S::kQBytes);
       for (int p = 0; p < NP; ++p)
         tma_load(q_s + p * S::kQPanel, &tq, q_bar, 64 * p, q0, b * H + h);
@@ -254,6 +160,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
+  if constexpr (S::kSplitRegs) regs_inc<240>();
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; this
   // thread holds rows row_a and row_a + 8 of its warp's 16
@@ -384,6 +291,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
   const long long obase = ((long long)b * H + h) * sq;
+  if (lse != nullptr && quad == 0) {   // log-sum-exp of the scaled scores
+    if (row_a < sq) lse[obase + row_a] = m_a + logf(den_a);
+    if (row_b < sq) lse[obase + row_b] = m_b + logf(den_b);
+  }
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -402,56 +313,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // --- host side -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is
-// reached through the runtime's entry-point query, so the library links
-// no libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// (d, rows, planes) bf16, row-major: boxes of 64 columns x box_rows rows
-// of one plane, 128B swizzle, out-of-range elements zero-filled
-bool make_map(CUtensorMap* map, const void* ptr, int d, int rows, int planes,
-              int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)d * 2 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KVH, int sq, int sk, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KVH, int sq, int sk, int causal, int q_offset,
+           float scale, cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, sq, B * H, kBQ) ||
@@ -463,21 +328,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KVH, sq, sk, causal,
-      q_offset, scale);
+  flash_fwd_sm90_kernel<D><<<grid, Smem<D>::kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, KVH, sq, sk,
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 q (B, H, sq, d), k and v (B, KVH, sk, d), out like q; every base
-// 16-byte aligned.  Returns cudaGetLastError() after the launch (or the
-// error that kept it from launching).
+// 16-byte aligned.  lse, when not null, receives each query row's
+// float32 log-sum-exp (B, H, sq) of its scaled, masked scores (natural
+// log: the backward's P = exp(scale q.k - lse)).  Returns
+// cudaGetLastError() after the launch (or the error that kept it from
+// launching).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
-                                        const void* v, void* o, int B, int H,
-                                        int KVH, int sq, int sk, int d,
-                                        int causal, int q_offset, float scale,
+                                        const void* v, void* o, void* lse,
+                                        int B, int H, int KVH, int sq,
+                                        int sk, int d, int causal,
+                                        int q_offset, float scale,
                                         void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || sq <= 0 || sk <= 0 ||
       q_offset < 0)
@@ -486,12 +355,16 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return launch<64>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
+      return launch<64>(q, k, v, o, l, B, H, KVH, sq, sk, causal, q_offset,
                         scale, st);
     case 128:
-      return launch<128>(q, k, v, o, B, H, KVH, sq, sk, causal, q_offset,
+      return launch<128>(q, k, v, o, l, B, H, KVH, sq, sk, causal, q_offset,
+                         scale, st);
+    case 256:
+      return launch<256>(q, k, v, o, l, B, H, KVH, sq, sk, causal, q_offset,
                          scale, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -2,7 +2,7 @@
 
 Masked softmax attention with GQA and a causal mask shifted by
 ``q_offset``: the CPU path of ``ops.attention`` and the version the CUDA
-kernel (``csrc/flash_attention.cu``) is held against on the card.
+kernels are held against on the card.
 
 It follows the JAX package's Pallas kernel (``flash_attention_fwd``):
 q is cast to float32 first and then scaled by ``d**-0.5`` in float32;
@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "attention_bwd_ref", "NEG_INF"]
+__all__ = ["attention_ref", "attention_bwd_ref", "attention_lse_ref",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -52,6 +53,28 @@ def attention_ref(
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def attention_lse_ref(
+    q: torch.Tensor,          # (b, h, sq, d)
+    k: torch.Tensor,          # (b, kvh, sk, d)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """(b, h, sq) float32: each query row's log-sum-exp (natural log) of
+    its scaled, masked scores, as ``attention_ref`` forms them; what the
+    tensor-core forward kernel writes for the backward."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, sq, d) * d ** -0.5
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
 def attention_bwd_ref(
     q: torch.Tensor,          # (b, h, sq, d)
     k: torch.Tensor,          # (b, kvh, sk, d)
@@ -62,7 +85,8 @@ def attention_bwd_ref(
 ) -> tuple:
     """(dq, dk, dv) in the inputs' dtypes: autograd through
     ``attention_ref`` on float32 copies at q_offset 0, the version the
-    backward kernel (``csrc/flash_attention_bwd.cu``) is held against."""
+    backward kernels (``csrc/flash_attention_bwd.cu``,
+    ``csrc/flash_attention_bwd_sm90.cu``) are held against."""
     with torch.enable_grad():
         qf, kf, vf = (t.detach().float().requires_grad_(True)
                       for t in (q, k, v))

@@ -44,7 +44,7 @@ RANK_RTOL, RANK_ATOL = 1e-5, 0.5
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, "flash_attention_sm90"),
     (torch.bfloat16, 64, "flash_attention_sm90"),
-    (torch.bfloat16, 256, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention_sm90"),
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
     (torch.float32, 256, "flash_attention"),
