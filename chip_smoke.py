@@ -27,7 +27,13 @@ Phases, one JSON object per line on standard output:
    in float32, at the train phase's shapes and each head dim, SDPA's
    backward as its library call; selective_scan
    within rtol/atol 1e-5 at the JAX tests' shapes, 1e-4 at b * di > 4096,
-   ragged edges of both kernels' tiling included), both timed with CUDA
+   ragged edges of both kernels' tiling included, and with its chunk
+   states at falcon's prefill, timed beside the forward without them;
+   the scan backward ``selective_scan_bwd`` against the plain reverse
+   recurrence (``selective_scan_bwd_ref``) on every output (dx, ddt, dA,
+   dB, dC, dh0) at the same gates, at the JAX tests' shapes, falcon's
+   training micro-batch (launched twice there for the same bits) and
+   ragged shapes, all with h0 and dhT), all timed with CUDA
    events, and where one PyTorch call computes the same function (the
    population gather's indexing, ``scaled_dot_product_attention``) that
    call too.  population_lut and rank_k also run at the shapes the
@@ -174,15 +180,29 @@ Phases, one JSON object per line on standard output:
    every gradient and the global gradient norm on gemma-2b's first 2
    layers at full width, kernels against the plain attention, within
    max(floor, 2 x the spread the JAX model code's own form of attention
-   shows against the plain one in the same run).  ``train_moe``:
+   shows against the plain one in the same run).
+   ``train_falcon-mamba-7b``: the same ``train_loop`` run on
+   falcon-mamba-7b at full width (d 4096, d_inner 8192, 16 states, 65k
+   vocab, untied) and ``TRAIN_FALCON_LAYERS`` of its 64 layers, float32
+   masters; gates: the loss falls, nothing NaN, the scan forward (with
+   chunk states) launched twice and ``selective_scan_bwd`` once a Mamba
+   layer a micro-batch pass.  ``train_check_mamba``: ``train_check`` on
+   falcon's first 2 layers, the scan kernels against the plain scan,
+   the spread from the JAX model code's chunked scan, and each layer's
+   backward held to the plain one on that layer's own inputs and output
+   gradient.  ``train_moe``:
    granite-moe-3b at full width on 4 of its 32 layers, 3 steps of 2 x
    1024; the load-balance loss finite and in the loss, the d=64
-   tensor-core forward and the backward launched.  ``train_resilient``:
+   tensor-core forward and the backward launched.  ``train_hybrid``:
+   jamba-1.5-large's 8-layer block pattern (Mamba, attention at
+   position 4, MoE 16 experts top-2 every other layer) as one
+   super-block at a quarter of its width (``TRAIN_HYBRID_CFG``), bf16
+   masters and moments, 3 steps of 2 x 1024; the loss finite with the
+   load-balance loss in it, the scan and attention kernels launched
+   each way per layer.  ``train_resilient``:
    ``run_resilient`` on a small gemma with a checkpoint every 2 steps
    and a failure injected at step 3: one restart, losses and final
-   parameters bit-equal to a clean run's.  ``train_mamba_refuses``: a
-   reduced falcon-mamba training step on the card raises
-   ``NotImplementedError`` (the scan has no backward kernel yet).
+   parameters bit-equal to a clean run's.
 12. ``service`` — the campaign service's HTTP front end
    (``service/api.py``) on a free local port, its process pool, fleet
    and serving tier on the card.  (a) ``process``: a ``gaussian3x3``
@@ -395,6 +415,25 @@ SCAN_CASES = [(1, 16, 8, 4, "JAX test shape"),
               (2, 32, 8192, 16, "falcon-mamba-7b LM DSE forward (b 2, s 32)"),
               (2, 1001, 4100, 16, "ragged"), (2, 999, 2050, 5, "ragged"),
               (1, 37, 13, 3, "ragged")]
+# selective-scan backward rows (5b): (b, s, di, n); the JAX tests'
+# shapes, falcon-mamba-7b's training micro-batch (the train phase's), and
+# ragged edges (s no multiple of the 64-step chunk or the 16-step tile, di
+# no multiple of the 64-channel block, n = 5 and 3, 4-byte copies); every
+# row with a nonzero h0 and dhT.  Gates: the forward's (``SCAN_RTOL`` /
+# ``SCAN_ATOL`` at the JAX tests' shapes, ``SCAN_WIDE_TOL`` at b * di >
+# 4096) on every output
+SCAN_BWD_CASES = [(1, 16, 8, 4, "JAX test shape"),
+                  (2, 64, 32, 8, "JAX test shape"),
+                  (1, 128, 16, 16, "JAX test shape"),
+                  (4, 1024, 8192, 16, "falcon-mamba-7b training micro-batch"),
+                  (2, 999, 2050, 5, "ragged"), (1, 37, 13, 3, "ragged")]
+SCAN_BWD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+# the backward row launched twice for the same bits (no atomics: the
+# training runs' bit-equal resume rests on it)
+SCAN_BWD_SAME_BITS = (4, 1024, 8192, 16)
+# the forward with chunk states, at falcon-mamba-7b's prefill, timed
+# beside the forward without them
+SCAN_STATES_CASE = (8, 1024, 8192, 16)
 
 # kernels each main-path phase must launch: the population gather of every
 # QoR label and the rank-k deployment graph that synthesis runs; the
@@ -418,7 +457,12 @@ MAIN_PATH = {
     # training: the forward kernel, twice a layer with remat, and the
     # backward kernel (bf16: ops.KERNEL_ROUTES, ops.BWD_ROUTES)
     "train_gemma-2b": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    # the scan forward with chunk states, twice a layer with remat, and the
+    # scan backward
+    "train_falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
     "train_moe": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    "train_hybrid": ("flash_attention_sm90", "flash_attention_bwd_sm90",
+                     "selective_scan", "selective_scan_bwd"),
     "train_resilient": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
     "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
@@ -650,6 +694,14 @@ def _close(rtol, atol):
     return compare
 
 
+def _close_named(rtol, atol, names):
+    """``_close`` over a tuple of outputs, naming the one outside."""
+    def compare(got, want, what):
+        for name, g, w in zip(names, got, want):
+            _close(rtol, atol)(g, w, f"{what} {name}")
+    return compare
+
+
 _rank_close = _close(RANK_RTOL, RANK_ATOL)
 
 
@@ -779,6 +831,7 @@ def phase_kernels(seed: int) -> list:
     rows += _flash_lse_rows(rng, dev)
     rows += _flash_bwd_rows(rng, dev)
     rows += _scan_rows(rng, dev)
+    rows += _scan_bwd_rows(rng, dev)
     return rows
 
 
@@ -1064,23 +1117,37 @@ def phase_rank_k_fresh() -> dict:
     return out
 
 
+# profiler windows that came back with no device time (CUPTI delivered
+# no kernel record; seen once on the H100 machine): each is
+# profiled again, up to DEVICE_MS_WINDOWS in all
+DEVICE_MS_WINDOWS = 3
+EMPTY_PROFILER_WINDOWS = []
+
+
 def device_ms(fn, *, calls: int = 20) -> float:
     """Card time of one ``fn()`` without the host's launch rate: the
     device time of every kernel and memset in a ``torch.profiler`` window
     of ``calls`` back-to-back calls, over the count (after a warm-up
-    call)."""
+    call).  A window that holds no device time is profiled again (and
+    counted in ``EMPTY_PROFILER_WINDOWS``); none in ``DEVICE_MS_WINDOWS``
+    fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev_s, _ = _device_time(prof)
-    check(dev_s is not None, "profiler window holds no device time")
+    for _ in range(DEVICE_MS_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev_s, _ = _device_time(prof)
+        if dev_s is not None:
+            break
+        EMPTY_PROFILER_WINDOWS.append(time.perf_counter() - _T0)
+    check(dev_s is not None, f"{DEVICE_MS_WINDOWS} profiler windows hold no "
+                             "device time")
     return dev_s * 1e3 / calls
 
 
@@ -1142,6 +1209,7 @@ def phase_lut_crossover(seed: int) -> dict:
         k_sweep[kind] = {"points": pts, "ms_per_k": float(slope),
                          "intercept_ms": float(icept)}
     out = {"phase": "kernel_lut_crossover", "sweep": sweep,
+           "empty_profiler_windows": len(EMPTY_PROFILER_WINDOWS),
            "shared_route_faster_from": first,
            "LUT_SHARED_MIN_WORK": LUT_SHARED_MIN_WORK,
            "k_sweep_512x512": k_sweep}
@@ -1417,6 +1485,136 @@ def _scan_rows(rng, dev) -> list:
             exps=float(b) * s * di * n,
             repeats=10 if wide else 20, plain_repeats=2 if wide else 5,
         ))
+    return rows
+
+
+def _scan_draw(rng, dev, b, s, di, n):
+    """x, dt, A, B, C, h0, drawn as ``_inputs`` in
+    tests/test_kernels_scan.py, then dy and dhT, on the card."""
+    import numpy as np
+    import torch
+
+    arrs = (rng.standard_normal((b, s, di)),
+            rng.uniform(0.01, 0.2, (b, s, di)),
+            -rng.uniform(0.5, 2.0, (di, n)),
+            rng.standard_normal((b, s, n)),
+            rng.standard_normal((b, s, n)),
+            rng.standard_normal((b, di, n)) * 0.1,
+            rng.standard_normal((b, s, di)),
+            rng.standard_normal((b, di, n)) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _plain_with_states(x, dt, A, B, C, h0):
+    """The plain scan run a chunk at a time: (y, hT, the state entering
+    each chunk), the forward kernel's outputs with ``with_states``."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        SCAN_CHUNK, selective_scan_ref,
+    )
+
+    ys, hs, h = [], [], h0
+    for t0 in range(0, x.shape[1], SCAN_CHUNK):
+        hs.append(h)
+        y, h = selective_scan_ref(*(t[:, t0:t0 + SCAN_CHUNK]
+                                    for t in (x, dt)), A,
+                                  *(t[:, t0:t0 + SCAN_CHUNK] for t in (B, C)),
+                                  h)
+        ys.append(y)
+    return torch.cat(ys, 1), h, torch.stack(hs, 1)
+
+
+def _scan_bwd_rows(rng, dev) -> list:
+    """Row 5b: the backward kernel against ``selective_scan_bwd_ref``;
+    then the forward with chunk states beside the forward without."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        SCAN_CHUNK, selective_scan_bwd_kernel, selective_scan_bwd_ref,
+        selective_scan_kernel,
+    )
+
+    rows = []
+    for b, s, di, n, label in SCAN_BWD_CASES:
+        x, dt, A, B, C, h0, dy, dhT = _scan_draw(rng, dev, b, s, di, n)
+        _, _, hc = selective_scan_kernel(x, dt, A, B, C, h0,
+                                         with_states=True)
+        wide = b * di > 4096
+        tol = SCAN_WIDE_TOL if wide else SCAN_RTOL
+
+        def kernel(x=x, dt=dt, A=A, B=B, C=C, hc=hc, dy=dy, dhT=dhT):
+            return selective_scan_bwd_kernel(x, dt, A, B, C, hc, dy, dhT)
+
+        def plain(x=x, dt=dt, A=A, B=B, C=C, dy=dy, h0=h0, dhT=dhT):
+            return selective_scan_bwd_ref(x, dt, A, B, C, dy, h0, dhT)
+        extra = {}
+        if (b, s, di, n) == SCAN_BWD_SAME_BITS:
+            first, second = kernel(), kernel()
+            same = all(bool(torch.equal(p, r))
+                       for p, r in zip(first, second))
+            check(same, f"selective_scan_bwd[{label}]: two launches on the "
+                        "same inputs differ")
+            extra["same_bits_twice"] = same
+            del first, second
+        close = _close_named(tol, tol if wide else SCAN_ATOL,
+                             SCAN_BWD_OUTPUTS)
+
+        def compare(got, want, what, extra=extra, close=close):
+            # the largest difference and element of each output, for the
+            # record
+            extra["max_abs_err_by_output"] = {
+                k: _max_err(g, w)
+                for k, g, w in zip(SCAN_BWD_OUTPUTS, got, want)}
+            extra["max_abs_by_output"] = {
+                k: float(w.abs().max())
+                for k, w in zip(SCAN_BWD_OUTPUTS, want)}
+            close(got, want, what)
+        nc = hc.shape[1]
+        rows.append(_kernel_row(
+            "selective_scan_bwd",
+            f"b={b} s={s} di={di} n={n} f32, h0 and dhT ({label})",
+            "src/repro_torch/csrc/selective_scan_bwd.cu",
+            "none (the gradient of src/repro/kernels/selective_scan/"
+            "kernel.py:66, which has no backward; the JAX package "
+            "differentiates its chunked XLA scan, src/repro/models/ssm.py:"
+            "75-126)",
+            kernel, plain, compare,
+            # x, dt, dy read, dx, ddt written; B, C read, dB, dC written;
+            # the chunk states read; A, dhT read, dA, dh0 written
+            nbytes=4.0 * (5 * b * s * di + 4 * b * s * n + b * nc * di * n
+                          + 2 * di * n + 2 * b * di * n),
+            # per (step, channel, state): the state again (3), G, dB, dC,
+            # the two sums over states, the carry, G a h, dA (15 flops);
+            # per (step, channel): dt x, dx, ddt (4)
+            ops=float(b) * s * di * (18 * n + 5),
+            exps=float(b) * s * di * n,   # a_t, once at least
+            repeats=10 if wide else 20, plain_repeats=1 if wide else 3,
+            extra=extra,
+        ))
+        del x, dt, A, B, C, h0, dy, dhT, hc
+
+    b, s, di, n = SCAN_STATES_CASE
+    x, dt, A, B, C, h0, _, _ = _scan_draw(rng, dev, b, s, di, n)
+    no_states_ms = time_ms(lambda: selective_scan_kernel(x, dt, A, B, C, h0),
+                           repeats=10)
+    rows.append(_kernel_row(
+        "selective_scan",
+        f"b={b} s={s} di={di} n={n} f32 (falcon-mamba-7b prefill width), "
+        "with chunk states (a training forward)",
+        "src/repro_torch/csrc/selective_scan.cu",
+        "src/repro/kernels/selective_scan/kernel.py:66",
+        lambda: selective_scan_kernel(x, dt, A, B, C, h0, with_states=True),
+        lambda: _plain_with_states(x, dt, A, B, C, h0),
+        _close(SCAN_WIDE_TOL, SCAN_WIDE_TOL),
+        nbytes=4.0 * (3 * b * s * di + 2 * b * s * n + di * n
+                      + 2 * b * di * n + b * -(-s // SCAN_CHUNK) * di * n),
+        ops=float(b) * s * di * (7 * n + 1),
+        exps=float(b) * s * di * n,
+        repeats=10, plain_repeats=2,
+        extra={"no_states_ms": no_states_ms},
+    ))
+    del x, dt, A, B, C, h0
     return rows
 
 
@@ -2407,20 +2605,26 @@ def _chunked_form_scan(x, dt, A, B, C, h0=None, *, impl=None, chunk=128):
     far the reference's own two forms of the scan move the full-depth
     logits."""
     import torch
+    from torch.utils.checkpoint import checkpoint
+
+    def body(xc, dtc, Bc, Cc, h):
+        a = torch.exp(dtc[..., None] * A)
+        bx = (dtc * xc)[..., None] * Bc[:, :, None, :]
+        a, bx = _assoc_scan(a, bx)
+        hh = bx + a * h[:, None]
+        return torch.einsum("blin,bln->bli", hh, Cc), hh[:, -1]
 
     b, s, di = x.shape
     h = (torch.zeros((b, di, A.shape[1]), device=x.device)
          if h0 is None else h0)
     ys = []
     for c0 in range(0, s, chunk):
-        xc, dtc, Bc, Cc = (t[:, c0:c0 + chunk] for t in (x, dt, B, C))
-        a = torch.exp(dtc[..., None] * A)
-        bx = (dtc * xc)[..., None] * Bc[:, :, None, :]
-        a, bx = _assoc_scan(a, bx)
-        hh = bx + a * h[:, None]
-        ys.append(torch.einsum("blin,bln->bli", hh, Cc))
-        h = hh[:, -1]
-        del a, bx, hh
+        args = [t[:, c0:c0 + chunk] for t in (x, dt, B, C)] + [h]
+        # under grad each chunk is rematerialised in the backward, as the
+        # JAX code's jax.checkpoint of its chunk body does
+        y, h = (checkpoint(body, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else body(*args))
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -2720,12 +2924,30 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
 
 # the train phase: ``launch/train.py``'s ``train_loop`` on gemma-2b at
 # full size (``TRAIN``), the kernel step against the plain one on its
-# first ``TRAIN_CHECK_LAYERS`` layers, granite-moe-3b at full width on
-# ``TRAIN_MOE_LAYERS`` layers, ``run_resilient`` on a reduced gemma with
-# one injected failure, and falcon-mamba's refusal to train on the card
+# first ``TRAIN_CHECK_LAYERS`` layers, the same two for falcon-mamba-7b
+# at full width and ``TRAIN_FALCON_LAYERS`` layers, granite-moe-3b at
+# full width on ``TRAIN_MOE_LAYERS`` layers, jamba's super-block
+# (``TRAIN_HYBRID_CFG``), and ``run_resilient`` on a reduced gemma with
+# one injected failure
 TRAIN = dict(steps=12, batch=8, seq=1024, n_micro=2, lr=1e-3)
 TRAIN_CHECK_LAYERS = 2
 TRAIN_CHECK_BATCH = 4
+# falcon-mamba-7b's 64 layers in float32 masters, AdamW moments and
+# gradients take 16 bytes a parameter, 7.27 B x 16 = 117 GB; one layer
+# is 105 M parameters, 1.68 GB of that state: the layers that fit one
+# 80 GB card beside the 65k embedding and head and a layer's
+# activations
+TRAIN_FALCON_LAYERS = 32
+# jamba-1.5-large's 8-layer block pattern (Mamba layers, attention at
+# position 4, MoE of 16 experts top-2 on every other layer) as one
+# super-block, bf16 masters and moments as its config asks, at a quarter
+# of its width: at d 8192 one super-block is ~88 GB of bf16 weights
+# (its four MoE layers 4 x 16 x 3 x 8192 x 24576 x 2 B = 77 GB), more
+# than a card; d 2048 keeps head dim 128 (the kernels' route), the 8:1
+# query to kv heads, d_ff = 3 d and the 65k vocab
+TRAIN_HYBRID_CFG = dict(n_layers=8, d_model=2048, n_heads=16, n_kv_heads=2,
+                        head_dim=128, d_ff=6144)
+TRAIN_HYBRID = dict(steps=3, batch=2, seq=1024, n_micro=1, lr=1e-3)
 TRAIN_MOE = dict(steps=3, batch=2, seq=1024, n_micro=1, lr=1e-3)
 TRAIN_MOE_LAYERS = 4
 # a small gemma whose head dim the kernels take (the reduced config's 16
@@ -2749,6 +2971,18 @@ TRAIN_LOSS_FLOOR = 5e-5
 TRAIN_GRAD_NORM_TOTAL_FLOOR = 1e-4
 TRAIN_GRAD_NORM_FLOOR = 7e-4
 TRAIN_GRAD_MAX_FLOOR = 2e-2
+# falcon-mamba-7b's first 2 layers: the worst tensor's norm moves with
+# the bf16 rounding noise of the layers above (layer 0's x_proj, whose
+# gradient sums dB and dC over the channels of each token: the scan's
+# output gradient differs per token, coherently across channels, by the
+# other layer's bf16 roundings).  Readings on the H100 (PERF.md §6; the
+# step is deterministic): kernel 1.10e-3, the chunked form
+# 1.18e-4, both on layer 0's x_proj; on that layer's own inputs and
+# output gradient the backward kernel is within 1.7e-6 of each output's
+# largest element of the plain backward.  That per-layer comparison
+# (``_scan_layer_check``), at the kernel rows' gate, is where a fault of
+# the kernel would show
+TRAIN_MAMBA_GRAD_NORM_FLOOR = 3e-3
 
 
 def _attn_layers(cfg) -> int:
@@ -2758,12 +2992,14 @@ def _attn_layers(cfg) -> int:
 
 def _train_flops(cfg, params: dict, tokens: int, pairs: int) -> dict:
     """A step's model FLOPs: 6 x the matrix parameters a token meets
-    (the layers' and the head's, tied or not) x tokens, plus the
+    (the layers' projections and the head's, tied or not; a Mamba
+    layer's depthwise conv and A are not products) x tokens, plus the
     attention's two products at 2 d flops a visible pair in the forward
     and twice that in the backward; and the FLOPs with remat's second
     forward of every layer."""
     layer = sum(p.numel() for n, p in params.items()
-                if n.startswith("layers.") and p.dim() >= 2)
+                if n.startswith("layers.") and p.dim() >= 2
+                and not n.endswith((".conv_w", ".A_log")))
     head = cfg.d_model * cfg.padded_vocab
     attn_fwd = (4.0 * cfg.resolved_head_dim * pairs * cfg.n_heads
                 * _attn_layers(cfg))
@@ -2773,39 +3009,78 @@ def _train_flops(cfg, params: dict, tokens: int, pairs: int) -> dict:
             + attn_fwd}
 
 
+def _mamba_layers(cfg) -> int:
+    return sum(k.mixer == "mamba"
+               for _ in range(cfg.n_superblocks) for k in cfg.block_pattern)
+
+
 def _train_launch_check(name, cfg, launches, micro_passes: int) -> dict:
     """Each attention layer launches its forward kernel twice in each
     micro-batch's pass (remat runs it again in the backward) and the
-    backward kernel once."""
+    backward kernel once; each Mamba layer the scan forward (with chunk
+    states) twice and the scan backward once."""
     import torch
 
     from repro_torch.kernels.flash_attention import bwd_route, kernel_route
 
-    fwd = kernel_route(torch.bfloat16, cfg.resolved_head_dim)
-    bwd = bwd_route(torch.bfloat16, cfg.resolved_head_dim)
-    check(fwd in MAIN_PATH[name] and bwd in MAIN_PATH[name],
-          f"{name}: routes {fwd}, {bwd}")
-    want = {fwd: 2 * _attn_layers(cfg) * micro_passes,
-            bwd: _attn_layers(cfg) * micro_passes}
+    want = {}
+    if _attn_layers(cfg):
+        fwd = kernel_route(torch.bfloat16, cfg.resolved_head_dim)
+        bwd = bwd_route(torch.bfloat16, cfg.resolved_head_dim)
+        want.update({fwd: 2 * _attn_layers(cfg) * micro_passes,
+                     bwd: _attn_layers(cfg) * micro_passes})
+    if _mamba_layers(cfg):
+        want.update({"selective_scan": 2 * _mamba_layers(cfg) * micro_passes,
+                     "selective_scan_bwd": _mamba_layers(cfg) * micro_passes})
+    check(set(want) == set(MAIN_PATH[name]),
+          f"{name}: routes {sorted(want)}, main path {MAIN_PATH[name]}")
     for k, n in want.items():
         check(launches[k] == n,
-              f"{name}: {k} launched {launches[k]} times, not {n} (attention "
-              f"layers x micro-batch passes{' x 2' if k == fwd else ''})")
+              f"{name}: {k} launched {launches[k]} times, not {n} (its "
+              "layers x micro-batch passes, x 2 for a forward under remat)")
     return want
 
 
 def _train_gemma(seed: int) -> dict:
+    from repro_torch.configs import get_config
+
+    return _train_full("train_gemma-2b", get_config("gemma-2b"), seed,
+                       {"steps": TRAIN["steps"],
+                        "why": "a smoke run: the loss must fall, not "
+                               "converge"})
+
+
+def _train_falcon(seed: int) -> dict:
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    published = get_config("falcon-mamba-7b")
+    cfg = replace(published, n_layers=TRAIN_FALCON_LAYERS)
+    return _train_full(
+        "train_falcon-mamba-7b", cfg, seed,
+        {"n_layers": {"published": published.n_layers,
+                      "run": cfg.n_layers},
+         "steps": TRAIN["steps"],
+         "why": "64 layers of float32 masters, moments and gradients "
+                "(7.27 B x 16 B = 117 GB) exceed one 80 GB card; "
+                f"{cfg.n_layers} layers (105 M parameters, 1.68 GB of "
+                "state each) fit with the embedding, the head and a "
+                "layer's activations (see max_memory_allocated); a smoke "
+                "run: the loss must fall, not converge"})
+
+
+def _train_full(name: str, cfg, seed: int, reduced_info: dict) -> dict:
+    """``train_loop`` at ``TRAIN``: the loss falls, nothing is NaN, the
+    kernels launched per layer and micro-batch pass."""
     import contextlib
     import math
 
     import torch
 
     from repro_torch import _build
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import train_loop
 
-    name = "train_gemma-2b"
-    cfg = get_config("gemma-2b")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     hist: list = []
@@ -2821,14 +3096,6 @@ def _train_gemma(seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     model_params = sum(p.numel() for p in state["params"].values())
 
-    check(len(losses) == TRAIN["steps"], f"{name}: {len(losses)} steps")
-    for h in hist:
-        check(all(math.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
-              f"{name}: step {h['step']} not finite: {h}")
-    check(losses[-1] < losses[0],
-          f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
-    want = _train_launch_check(name, cfg, launches,
-                               TRAIN["n_micro"] * TRAIN["steps"])
     tokens = TRAIN["batch"] * TRAIN["seq"]
     steady = statistics.median(h["step_s"] for h in hist[1:])
     flops = _train_flops(cfg, state["params"], tokens, TRAIN["batch"]
@@ -2839,8 +3106,7 @@ def _train_gemma(seed: int) -> dict:
         "phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "widths": _serve_widths(cfg),
         "vocab": cfg.padded_vocab, "params": model_params, **TRAIN,
-        "reduced": {"steps": TRAIN["steps"],
-                    "why": "a smoke run: the loss must fall, not converge"},
+        "master_dtype": cfg.param_dtype, "reduced": reduced_info,
         "wall_s": wall,
         "first_step_s": hist[0]["step_s"], "step_s_median": steady,
         "step_s": [h["step_s"] for h in hist],
@@ -2851,9 +3117,17 @@ def _train_gemma(seed: int) -> dict:
         **flops,
         "model_flops_over_bf16_peak": flops["model_flops"] / steady
         / TENSOR_CORE_BF16_OPS_PER_S,
-        "launches": launches, "launches_expected": want,
+        "launches": launches,
     }
     emit(out)
+    check(len(losses) == TRAIN["steps"], f"{name}: {len(losses)} steps")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{name}: step {h['step']} not finite: {h}")
+    check(losses[-1] < losses[0],
+          f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    out["launches_expected"] = _train_launch_check(
+        name, cfg, launches, TRAIN["n_micro"] * TRAIN["steps"])
     return out
 
 
@@ -2862,7 +3136,15 @@ def _grad_diffs(got: dict, want: dict) -> dict:
     and of its largest elementwise difference over its largest element."""
     import torch
 
-    worst_norm = worst_max = 0.0
+    return {k: v for k, (v, _) in _grad_worst(got, want).items()}
+
+
+def _grad_worst(got: dict, want: dict) -> dict:
+    """``_grad_diffs``'s two figures, each with the tensor it comes
+    from."""
+    import torch
+
+    worst = {"grad_norm_rel": (0.0, None), "grad_max_rel": (0.0, None)}
     for k, w in want.items():
         g = got[k].float()
         w = w.float()
@@ -2871,29 +3153,111 @@ def _grad_diffs(got: dict, want: dict) -> dict:
         if top == 0.0:
             check(not bool(g.any()), f"train_check: {k} gradient not 0")
             continue
-        worst_norm = max(worst_norm, abs(float(torch.linalg.vector_norm(g))
-                                         - wn) / wn)
-        worst_max = max(worst_max, float((g - w).abs().max()) / top)
-    return {"grad_norm_rel": worst_norm, "grad_max_rel": worst_max}
+        for what, v in (("grad_norm_rel",
+                         abs(float(torch.linalg.vector_norm(g)) - wn) / wn),
+                        ("grad_max_rel",
+                         float((g - w).abs().max()) / top)):
+            if v > worst[what][0]:
+                worst[what] = (v, k)
+    return worst
 
 
 def _train_check(seed: int) -> dict:
     """One training step's loss, gradients and global gradient norm with
     the kernels against the same with the plain attention, on the first
     ``TRAIN_CHECK_LAYERS`` layers of gemma-2b at full width."""
+    import repro_torch.models.attention as attn_mod
+
+    return _train_check_run("train_check", "gemma-2b", seed, attn_mod,
+                            "attn_op", _chunked_form_attention,
+                            "train_gemma-2b", "the plain attention's (b, "
+                            "h, s, s) float32 scores")
+
+
+def _train_check_mamba(seed: int) -> dict:
+    """The same on falcon-mamba-7b's first ``TRAIN_CHECK_LAYERS`` layers
+    at full width: the scan kernels against the plain scan, the spread
+    measured with the JAX model code's chunked scan."""
+    import repro_torch.models.ssm as ssm_mod
+
+    return _train_check_run("train_check_mamba", "falcon-mamba-7b", seed,
+                            ssm_mod, "selective_scan", _chunked_form_scan,
+                            "train_falcon-mamba-7b", "the plain scan's "
+                            "1024 sequential steps, each state kept for "
+                            "autograd",
+                            floors={"grad_norm_rel":
+                                    TRAIN_MAMBA_GRAD_NORM_FLOOR},
+                            layer_check=_scan_layer_check)
+
+
+def _scan_layer_check(kernel_fn, n_layers: int):
+    """(wrapper, check): ``wrapper`` stands in for the model's scan
+    during the kernel step and keeps each layer's first (not the
+    remat) call's inputs and, from the backward, its output gradient;
+    ``check()`` then holds the backward kernel against
+    ``selective_scan_bwd_ref`` on each layer's own inputs, within
+    ``SCAN_WIDE_TOL`` of each output's largest element (a fault of the
+    kernel shows there, apart from the rounding noise the whole step
+    carries), and returns the largest differences."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_kernel, selective_scan_bwd_ref,
+        selective_scan_kernel,
+    )
+
+    store: list = []
+
+    def wrapper(x, dt, A, B, C, h0=None, *, impl="kernel"):
+        y, hT = kernel_fn(x, dt, A, B, C, h0, impl=impl)
+        if y.requires_grad and len(store) < n_layers:
+            rec = {"in": [t.detach() for t in (x, dt, A, B, C)]}
+            y.register_hook(lambda g, rec=rec: rec.__setitem__(
+                "dy", g.detach().clone()))
+            store.append(rec)
+        return y, hT
+
+    def check_layers() -> list:
+        close = _close_to_max(SCAN_WIDE_TOL, SCAN_WIDE_TOL)
+        out = []
+        for j, rec in enumerate(store):
+            x, dt, A, B, C = rec["in"]
+            _, _, hc = selective_scan_kernel(x, dt, A, B, C,
+                                             with_states=True)
+            got = selective_scan_bwd_kernel(x, dt, A, B, C, hc, rec["dy"])
+            want = selective_scan_bwd_ref(x, dt, A, B, C, rec["dy"])
+            out.append({k: _max_err(g, w) / max(float(w.abs().max()), 1e-30)
+                        for k, g, w in zip(SCAN_BWD_OUTPUTS, got, want)})
+            for k, g, w in zip(SCAN_BWD_OUTPUTS, got, want):
+                close((g,), (w,), f"train_check_mamba layer {j} {k}")
+            del got, want, hc
+        check(len(store) == n_layers,
+              f"train_check_mamba: {len(store)} layers captured")
+        store.clear()
+        torch.cuda.empty_cache()
+        return out
+
+    return wrapper, check_layers
+
+
+def _train_check_run(name, arch, seed, mod, attr, form, main, plain_cost,
+                     floors=None, layer_check=None):
+    """One training step of ``arch``'s first ``TRAIN_CHECK_LAYERS``
+    layers with the kernels, with the plain version, and with the JAX
+    model code's own form of the function (``form`` patched in as
+    ``mod.attr``): the kernel step against the plain one within
+    max(floor, ``TRAIN_SPREAD_FACTOR`` x the form's spread)."""
     from dataclasses import replace
 
     import torch
 
-    import repro_torch.models.attention as attn_mod
     from repro_torch import _build
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.models import Transformer
     from repro_torch.train import make_loss_fn
 
-    name = "train_check"
-    published = get_config("gemma-2b")
+    published = get_config(arch)
     cfg = replace(published, n_layers=TRAIN_CHECK_LAYERS)
     model = Transformer(cfg, device="cuda", trainable=True)
     model.init_weights(seed)
@@ -2902,15 +3266,15 @@ def _train_check(seed: int) -> dict:
     batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
 
     def step(impl, form=None):
-        orig = attn_mod.attn_op
+        orig = getattr(mod, attr)
         if form is not None:
-            attn_mod.attn_op = form
+            setattr(mod, attr, form)
         try:
             model.zero_grad(set_to_none=True)
             loss, _ = make_loss_fn(model, impl=impl)(batch)
             loss.backward()
         finally:
-            attn_mod.attn_op = orig
+            setattr(mod, attr, orig)
         grads = {k: p.grad.detach().clone()
                  for k, p in model.named_parameters()}
         gn = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
@@ -2918,13 +3282,19 @@ def _train_check(seed: int) -> dict:
         return float(loss.detach()), grads, gn
 
     t0 = time.perf_counter()
+    wrapper, check_layers = (layer_check(getattr(mod, attr),
+                                         TRAIN_CHECK_LAYERS)
+                             if layer_check else (None, None))
     _build.reset_launches()
-    k_loss, k_g, k_gn = step("kernel")
+    k_loss, k_g, k_gn = step("kernel", form=wrapper)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    per_layer = check_layers() if check_layers else None
     p_loss, p_g, p_gn = step("plain")
-    c_loss, c_g, c_gn = step("plain", form=_chunked_form_attention)
+    c_loss, c_g, c_gn = step("plain", form=form)
     model.zero_grad(set_to_none=True)
+    worst = {"kernel": _grad_worst(k_g, p_g),
+             "chunked_form": _grad_worst(c_g, p_g)}
     err = {"loss_rel": abs(k_loss - p_loss) / abs(p_loss),
            "grad_norm_total_rel": abs(k_gn - p_gn) / p_gn,
            **_grad_diffs(k_g, p_g)}
@@ -2934,9 +3304,9 @@ def _train_check(seed: int) -> dict:
     floors = {"loss_rel": TRAIN_LOSS_FLOOR,
               "grad_norm_total_rel": TRAIN_GRAD_NORM_TOTAL_FLOOR,
               "grad_norm_rel": TRAIN_GRAD_NORM_FLOOR,
-              "grad_max_rel": TRAIN_GRAD_MAX_FLOOR}
+              "grad_max_rel": TRAIN_GRAD_MAX_FLOOR, **(floors or {})}
     tol = {k: max(floors[k], TRAIN_SPREAD_FACTOR * spread[k]) for k in err}
-    fwd, bwd = MAIN_PATH["train_gemma-2b"]
+    fwd, bwd = MAIN_PATH[main]
     check(launches[fwd] == TRAIN_CHECK_LAYERS * 2
           and launches[bwd] == TRAIN_CHECK_LAYERS,
           f"{name}: launches {launches}")
@@ -2946,13 +3316,15 @@ def _train_check(seed: int) -> dict:
                                     "run": cfg.n_layers},
                        "batch": {"train": TRAIN["batch"],
                                  "run": TRAIN_CHECK_BATCH},
-                       "why": "three full backward passes, one with the "
-                              "plain attention's (b, h, s, s) float32 "
-                              "scores; the kernels' share of the gradient "
-                              "is the same in every layer"},
+                       "why": "three full backward passes, one with "
+                              f"{plain_cost}; the kernels' share of the "
+                              "gradient is the same in every layer"},
            "loss": {"kernel": k_loss, "plain": p_loss, "chunked_form": c_loss},
            "grad_norm": {"kernel": k_gn, "plain": p_gn, "chunked_form": c_gn},
            "kernel_vs_plain": err, "chunked_form_vs_plain": spread,
+           "worst_tensors": worst,
+           **({"layer_bwd_max_err_over_max": per_layer}
+              if per_layer is not None else {}),
            "tolerance": tol, "comparison_launches": launches,
            "wall_s": time.perf_counter() - t0}
     del model, k_g, p_g, c_g
@@ -3093,38 +3465,83 @@ def _train_resilient(seed: int) -> dict:
     return out
 
 
-def _train_mamba_refuses(seed: int) -> dict:
+def _train_hybrid(seed: int) -> dict:
+    """jamba-1.5-large's block pattern as one super-block
+    (``TRAIN_HYBRID_CFG``), bf16 masters and moments, through
+    ``train_loop``: the loss finite, the load-balance loss in it, the
+    scan and attention kernels each way launched per layer."""
+    import contextlib
+    import math
+    from dataclasses import replace
+
     import torch
 
+    from repro_torch import _build
     from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
-    from repro_torch.models import Transformer, reduced
-    from repro_torch.optim import AdamW
-    from repro_torch.train import init_state, make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import AUX_COEF
 
-    name = "train_mamba_refuses"
-    cfg = reduced(get_config("falcon-mamba-7b"))
-    model = Transformer(cfg, device="cuda", trainable=True)
-    model.init_weights(seed)
-    opt = AdamW()
-    step = make_train_step(model, opt)
-    b = TokenPipeline(cfg.vocab_size, 2, 64, seed=seed).batch_at(0)
-    msg = None
-    try:
-        step(init_state(dict(model.named_parameters()), opt),
-             {k: torch.from_numpy(v).cuda() for k, v in b.items()})
-    except NotImplementedError as e:
-        msg = str(e)
-    check(msg is not None and "selective scan" in msg,
-          f"{name}: a Mamba training step on the card did not refuse "
-          f"({msg!r})")
-    del model
+    name = "train_hybrid"
+    published = get_config("jamba-1.5-large-398b")
+    cfg = replace(published, **TRAIN_HYBRID_CFG)
     torch.cuda.empty_cache()
-    out = {"phase": name, "arch": cfg.name,
-           "reduced": {"config": "models.reduced",
-                       "why": "the step must refuse before any kernel runs"},
-           "error": msg}
+    torch.cuda.reset_peak_memory_stats()
+    hist: list = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        state, losses = train_loop(cfg, device="cuda", seed=seed,
+                                   history=hist, **TRAIN_HYBRID)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    dtypes = sorted({str(p.dtype) for p in state["params"].values()}
+                    | {str(m.dtype) for m in state["opt"]["m"].values()})
+    params = sum(p.numel() for p in state["params"].values())
+    del state
+    torch.cuda.empty_cache()
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "pattern": [f"{k.mixer}+{k.mlp}" for k in cfg.block_pattern],
+           "d_model": cfg.d_model, "widths": _serve_widths(cfg),
+           "d_inner": cfg.d_inner, "vocab": cfg.padded_vocab,
+           "params": params, **TRAIN_HYBRID,
+           "master_and_moment_dtypes": dtypes,
+           "reduced": {"n_layers": {"published": published.n_layers,
+                                    "run": cfg.n_layers},
+                       "d_model": {"published": published.d_model,
+                                   "run": cfg.d_model},
+                       "n_heads": {"published": published.n_heads,
+                                   "run": cfg.n_heads},
+                       "n_kv_heads": {"published": published.n_kv_heads,
+                                      "run": cfg.n_kv_heads},
+                       "d_ff": {"published": published.d_ff,
+                                "run": cfg.d_ff},
+                       "steps": TRAIN_HYBRID["steps"],
+                       "why": "one super-block at full width is ~88 GB of "
+                              "bf16 weights (its four MoE layers 77 GB), "
+                              "more than one 80 GB card; its pattern, "
+                              "experts, top-2, head dim 128, kv ratio and "
+                              "vocab kept at a quarter of the width"},
+           "wall_s": wall, "step_s": [h["step_s"] for h in hist],
+           "losses": losses, "ce": [h["ce"] for h in hist],
+           "aux": [h["aux"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches}
     emit(out)
+    check(dtypes == ["torch.bfloat16"],
+          f"{name}: masters and moments {dtypes}, not bf16")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{name}: step {h['step']} not finite: {h}")
+        check(math.isfinite(h["aux"]) and h["aux"] > 0,
+              f"{name}: step {h['step']} load-balance loss {h['aux']}")
+        check(abs(h["loss"] - (h["ce"] + AUX_COEF * h["aux"]))
+              <= 1e-5 * abs(h["loss"]),
+              f"{name}: step {h['step']} loss {h['loss']} is not ce + "
+              f"{AUX_COEF} x aux")
+    out["launches_expected"] = _train_launch_check(
+        name, cfg, launches, TRAIN_HYBRID["n_micro"] * TRAIN_HYBRID["steps"])
     return out
 
 
@@ -3133,9 +3550,11 @@ def phase_train(seed: int) -> list:
     launches count toward the kernels' main-path totals."""
     runs = [_train_gemma(seed)]
     _train_check(seed)
+    runs.append(_train_falcon(seed))
+    _train_check_mamba(seed)
     runs.append(_train_moe(seed))
+    runs.append(_train_hybrid(seed))
     runs.append(_train_resilient(seed))
-    _train_mamba_refuses(seed)
     return runs
 
 
@@ -3505,12 +3924,18 @@ def phase_lm_dse(seed: int) -> dict:
 # every campaign of the service phase at the paper's widths (n_train
 # 1000, pop 1000, 200 parents, 4 QoR images) and FIGS_HW_MODEL; the
 # process-pool campaign at the dse phase's generations, the fleet's at
-# FIGS_GENERATIONS
+# FIGS_GENERATIONS with SERVICE_FLEET_QOR_MODEL
 SERVICE_WIDTHS = dict(n_train=1000, pop_size=1000, n_parents=200,
                       n_qor_samples=4, hw_model=FIGS_HW_MODEL)
 SERVICE_WORKERS = 2          # process-pool children, and fleet workers
 SERVICE_CPU_SUBSET = 64      # stored genomes re-labeled on the CPU
 SERVICE_FLEET_ACCEL = "hevc_dct4x4"
+# the QoR surrogate of the fleet's campaign and its thread-backend twin:
+# ridge in place of the paper's random forest, whose pure-Python fit
+# (~30 s, PERF.md §7) is most of a campaign's wall; the pair checks the
+# lease protocol and byte-identity, which hold with either surrogate,
+# and the random forest runs in every other campaign
+SERVICE_FLEET_QOR_MODEL = "ridge"
 SERVICE_FLEET_CHUNK = 100    # genomes a lease: 10 leases a training batch
 SERVICE_HEARTBEAT_TTL_S = 6.0
 SERVICE_LEASE_TTL_S = 120.0
@@ -3937,6 +4362,7 @@ def _service_fleet(seed: int) -> dict:
     from repro_torch.service import CampaignManager, CampaignSpec
 
     spec = dict(SERVICE_WIDTHS, accel=SERVICE_FLEET_ACCEL,
+                qor_model=SERVICE_FLEET_QOR_MODEL,
                 n_generations=FIGS_GENERATIONS, seed=seed)
     what = "service fleet"
     ref_mgr = CampaignManager(device="cuda", eval_workers=2,
@@ -4065,7 +4491,13 @@ def _service_fleet(seed: int) -> dict:
            "reduced": {"n_generations": {"paper": 1000,
                                          "run": FIGS_GENERATIONS},
                        "hw_model": {"repo_default": "bayesian_ridge",
-                                    "run": FIGS_HW_MODEL}}}
+                                    "run": FIGS_HW_MODEL},
+                       "qor_model": {"repo_default": "random_forest",
+                                     "run": SERVICE_FLEET_QOR_MODEL,
+                                     "why": "time: the forest's fit is "
+                                            "most of a campaign's wall; "
+                                            "the pair checks the leases "
+                                            "and byte-identity"}}}
     emit(out)
     return out
 

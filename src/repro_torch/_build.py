@@ -77,9 +77,13 @@ KERNELS: Dict[str, tuple] = {
     #  KVH, s, d, causal, scale, stream)
     "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90",
                                  [_P] * 12 + [_I] * 6 + [_F, _P]),
-    # (x, dt, A, B, C, h0, y, hT, b, s, di, n, stream)
-    "selective_scan": ("selective_scan_fwd",
-                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (x, dt, A, B, C, h0, y, hT, chunk states or null, b, s, di, n,
+    #  stream)
+    "selective_scan": ("selective_scan_fwd", [_P] * 9 + [_I] * 4 + [_P]),
+    # (x, dt, A, B, C, chunk states, dy, dhT or null, dx, ddt, dA, dB, dC,
+    #  dh0, dB partials, dC partials, dA partials, b, s, di, n, stream)
+    "selective_scan_bwd": ("selective_scan_bwd", [_P] * 17 + [_I] * 4
+                           + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -4,7 +4,12 @@
 //   y_t = <h_t, C_t>
 //
 // x/dt (b, s, di), A (di, n), B/C (b, s, n), h0 (b, di, n), all float32,
-// n in 1..16; writes y (b, s, di) and the final state hT (b, di, n).
+// n in 1..16; writes y (b, s, di) and the final state hT (b, di, n), and,
+// where a pointer is passed (a training forward), the chunk states hc
+// (b, ceil(s / kChunk), di, n): the state entering each chunk of kChunk =
+// 64 steps (hc[:, 0] = h0), which csrc/selective_scan_bwd.cu recomputes
+// its chunks from with the same arithmetic, so it meets this kernel's
+// bits.  Serving passes none and runs the instantiation without them.
 //
 // Replaces: selective_scan_pallas (body _scan_kernel),
 //   src/repro/kernels/selective_scan/kernel.py, in the JAX package.
@@ -79,6 +84,10 @@ constexpr int kCPT = 2;         // channels per thread
 constexpr int kChannels = kThreads / kTPC * kCPT;   // 64 a block
 constexpr int kTile = 16;       // steps a stage
 constexpr int kStages = 2;      // depth of the cp.async ring
+// steps a chunk state covers (a multiple of kTile); the backward kernel's
+// kChunk, which must be the same
+constexpr int kChunk = 64;
+constexpr int kChunkTiles = kChunk / kTile;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -178,7 +187,7 @@ __device__ __forceinline__ void step_group(Smem& sm, int st, int t0, int c0,
   *reinterpret_cast<float2*>(&sm.x[st][t0 + q][c0]) = make_float2(y0, y1);
 }
 
-template <bool kVec>
+template <bool kVec, bool kStates>
 __global__ void __launch_bounds__(kThreads, 8)
 selective_scan_kernel(const float* __restrict__ x,
                       const float* __restrict__ dt,
@@ -186,7 +195,8 @@ selective_scan_kernel(const float* __restrict__ x,
                       const float* __restrict__ B,
                       const float* __restrict__ C,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ hT, int s, int di, int n) {
+                      float* __restrict__ hT, float* __restrict__ hc,
+                      int s, int di, int n) {
   constexpr int CH = kChannels;
   constexpr int CH4 = CH / 4;
   __shared__ __align__(16) Smem sm;
@@ -259,6 +269,20 @@ selective_scan_kernel(const float* __restrict__ x,
     __syncthreads();       // ... for every thread; tile k - 1 written out
     if (k + 1 < ntiles) load(k + 1, (k + 1) % kStages);
 
+    if (kStates && k % kChunkTiles == 0) {
+      // the state entering chunk k / kChunkTiles
+      const int nc = (s + kChunk - 1) / kChunk;
+#pragma unroll
+      for (int u = 0; u < kCPT; ++u) {
+        const int ch = ch0 + c0 + u;
+        const long long state =
+            (((long long)b * nc + k / kChunkTiles) * di + ch) * n;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (ch < di && 4 * q + j < n) hc[state + 4 * q + j] = h[u][j];
+      }
+    }
+
     const int t0 = k * kTile;
     const int len = min(kTile, s - t0);
     if (len == kTile) {
@@ -305,12 +329,12 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (or the error that kept it
-// from launching).
+// from launching).  hc may be null: no chunk states.
 extern "C" int selective_scan_fwd(const void* x, const void* dt,
                                   const void* A, const void* B,
                                   const void* C, const void* h0, void* y,
-                                  void* hT, int b, int s, int di, int n,
-                                  void* stream) {
+                                  void* hT, void* hc, int b, int s, int di,
+                                  int n, void* stream) {
   if (b <= 0 || b > 65535 || s < 0 || di <= 0 || n < 1 || n > kMaxState)
     return (int)cudaErrorInvalidValue;
   const bool vec = di % 4 == 0 && n % 4 == 0 && aligned16(x) &&
@@ -324,13 +348,20 @@ extern "C" int selective_scan_fwd(const void* x, const void* dt,
   const auto* fh0 = static_cast<const float*>(h0);
   auto* fy = static_cast<float*>(y);
   auto* fhT = static_cast<float*>(hT);
+  auto* fhc = static_cast<float*>(hc);
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)((di + kChannels - 1) / kChannels), (unsigned)b);
-  if (vec)
-    selective_scan_kernel<true><<<grid, kThreads, 0, st>>>(
-        fx, fdt, fA, fB, fC, fh0, fy, fhT, s, di, n);
+  if (vec && fhc)
+    selective_scan_kernel<true, true><<<grid, kThreads, 0, st>>>(
+        fx, fdt, fA, fB, fC, fh0, fy, fhT, fhc, s, di, n);
+  else if (vec)
+    selective_scan_kernel<true, false><<<grid, kThreads, 0, st>>>(
+        fx, fdt, fA, fB, fC, fh0, fy, fhT, fhc, s, di, n);
+  else if (fhc)
+    selective_scan_kernel<false, true><<<grid, kThreads, 0, st>>>(
+        fx, fdt, fA, fB, fC, fh0, fy, fhT, fhc, s, di, n);
   else
-    selective_scan_kernel<false><<<grid, kThreads, 0, st>>>(
-        fx, fdt, fA, fB, fC, fh0, fy, fhT, s, di, n);
+    selective_scan_kernel<false, false><<<grid, kThreads, 0, st>>>(
+        fx, fdt, fA, fB, fC, fh0, fy, fhT, fhc, s, di, n);
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,8 @@ CPU at reduced scale.
 
     python -m repro_torch.launch.train --arch gemma-2b --steps 12 \\
         --batch 8 --seq 1024 --n-micro 2
+    python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --n-layers 32 --steps 12 --batch 8 --seq 1024 --n-micro 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --reduced --steps 50 --batch 8 --seq 64 --device cpu
 
@@ -12,14 +14,22 @@ restart from the latest checkpoint, optional int8 error-feedback
 gradient compression, optional approximation policy on the FFN
 projections (the paper's technique applied to the LM).  Weights are
 random, drawn from ``seed``.  Without ``--device`` it runs on the GPU
-and raises on a machine without one.  Encoder-decoder and front-end
-archs are not ported and raise.
+and raises on a machine without one.  Attention, Mamba (falcon-mamba)
+and hybrid (jamba) stacks train, each layer rematerialised, through the
+attention and selective-scan kernels each way; masters and AdamW
+moments in the config's ``param_dtype`` and ``moment_dtype`` (bf16 for
+jamba).  ``--n-layers`` cuts the depth (a multiple of the block
+pattern; the widths stay published) where the training state exceeds
+one card: falcon-mamba-7b's 64 layers take 7.27 B x 16 B = 117 GB, 32
+fit an 80 GB card.  Encoder-decoder and front-end archs are not ported
+and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 from typing import List, Optional
 
 import torch
@@ -104,6 +114,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-runnable)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="depth to train at, a multiple of the arch's "
+                         "block pattern (widths unchanged)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -120,6 +133,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.n_layers is not None:
+        period = len(cfg.block_pattern)
+        if args.n_layers < 1 or args.n_layers % period:
+            ap.error(f"--n-layers must be a positive multiple of "
+                     f"{cfg.name}'s block pattern ({period} layers)")
+        cfg = replace(cfg, n_layers=args.n_layers)
     policy = None
     if args.approx:
         policy = ApproxPolicy({

@@ -6,7 +6,10 @@ A = -exp(A_log), y = C.h + D*x, out = out_proj(y * silu(z)).
 
 Prefill runs the selective-scan kernel over the whole prompt and keeps
 the post-prompt state; decode is the one-step recurrence in plain
-PyTorch against a (conv, ssm) cache, as in the JAX package.
+PyTorch against a (conv, ssm) cache, as in the JAX package.  A training
+forward (no cache, under grad) on the card goes through the scan's
+autograd function (``kernels.selective_scan.SelectiveScan``): the
+forward kernel with its chunk states, and the backward kernel.
 """
 
 from __future__ import annotations

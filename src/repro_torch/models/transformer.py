@@ -20,8 +20,10 @@ does, so the bits at use are serving's.  ``forward_train`` is its
 differentiable forward: ``(logits, aux)`` as the JAX package's
 ``forward`` returns them, each layer rematerialised in the backward
 (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
-does there.  Serving's ``forward`` and ``decode_step`` stay under
-``no_grad``.
+does there: an attention layer runs its forward kernel twice and its
+backward kernel once a pass, a Mamba layer the scan's forward kernel
+(with chunk states) twice and its backward kernel once.  Serving's
+``forward`` and ``decode_step`` stay under ``no_grad``.
 
 MoE layers return their routing beside their output; ``last_aux`` is
 the Switch load-balance loss summed over the layers of the last

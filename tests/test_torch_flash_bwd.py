@@ -7,9 +7,10 @@ against that plain version in ``chip_smoke.py``.  Here the plain path's
 dQ, dK and dV are held to ``jax.vjp`` of the JAX package's chunked
 attention (the form its model code trains through) at the JAX package's
 attention tolerance, rtol 1e-4 / atol 1e-5 in float32
-(tests/test_kernels.py); and the card-only branches are reached through
-a mocked device check: a q_offset under grad and a Mamba layer's
-training forward refuse before any kernel would launch.
+(tests/test_kernels.py); and the card-only branch is reached through a
+mocked device check: a q_offset under grad refuses before any kernel
+would launch.  (A Mamba layer's training route on the card is
+tests/test_torch_scan_bwd.py's.)
 """
 
 import jax
@@ -19,8 +20,6 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import attention as ref_attention
-from repro_torch.configs import get_config
-from repro_torch.data import TokenPipeline
 from repro_torch.kernels.flash_attention import (
     BWD_HEAD_DIMS,
     attention,
@@ -28,10 +27,6 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_kernel,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.selective_scan import ops as scan_ops
-from repro_torch.models import Transformer, reduced
-from repro_torch.optim import AdamW
-from repro_torch.train import init_state, make_train_step
 
 RTOL, ATOL = 1e-4, 1e-5     # tests/test_kernels.py, float32 attention
 
@@ -109,32 +104,3 @@ def test_offset_under_grad_refuses_on_the_card(monkeypatch):
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="q_offset 0"):
         attention(q, k, v, causal=True, q_offset=3)
-
-
-def test_mamba_training_step_refuses_on_the_card(monkeypatch):
-    """A Mamba layer's training forward asks for the scan kernel, which
-    has no backward yet: on the card (the device check mocked) the step
-    raises, and is not routed to the plain scan; on the CPU it trains
-    through the plain scan."""
-    cfg = reduced(get_config("falcon-mamba-7b"))
-    model = Transformer(cfg, device="cpu", trainable=True)
-    model.init_weights(0)
-    opt = AdamW()
-    step = make_train_step(model, opt)
-    b = TokenPipeline(cfg.vocab_size, 2, 16).batch_at(0)
-    batch = {k: torch.from_numpy(v) for k, v in b.items()}
-    state = init_state(dict(model.named_parameters()), opt)
-    _, m = step(state, batch)
-    assert np.isfinite(float(m["loss"]))
-    calls = []
-    monkeypatch.setattr(scan_ops, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(scan_ops, "selective_scan_kernel",
-                        lambda *a: calls.append(1)
-                        or scan_ops.selective_scan_ref(*a))
-    with pytest.raises(NotImplementedError, match="selective scan"):
-        step(state, batch)
-    assert calls == []
-    # serving (no grad) would still take the kernel route
-    with torch.no_grad():
-        model.forward_train(batch["tokens"][:, :4])
-    assert len(calls) == cfg.n_layers
