@@ -1318,6 +1318,9 @@ def _flash_lse_rows(rng, dev) -> list:
                 rng.standard_normal(shape).astype(np.float32)).to(
                     dev, torch.bfloat16)
         q, k, v = draw(b, h, s, d), draw(b, kvh, s, d), draw(b, kvh, s, d)
+        # the library's flash attention with its log-sum-exp, on K/V
+        # expanded to the query heads (outside the timing)
+        ke, ve = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
         pairs = _causal_pairs(s, s, 0, True) * b * h
         ops = 4.0 * d * pairs
         # q, k, v read; the output and the log-sum-exp written
@@ -1333,6 +1336,13 @@ def _flash_lse_rows(rng, dev) -> list:
             lambda q=q, k=k: attention_lse_ref(q, k, causal=True),
             _close(FLASH_LSE_RTOL, FLASH_LSE_ATOL),
             nbytes=nbytes, ops=ops, repeats=10,
+            library_fn=lambda q=q, ke=ke, ve=ve: (
+                torch.ops.aten._scaled_dot_product_flash_attention(
+                    q, ke, ve, 0.0, True)[1]),
+            extra={"library_call": "torch.ops.aten."
+                                   "_scaled_dot_product_flash_attention "
+                                   "(K/V expanded to the query heads), its "
+                                   "log-sum-exp"},
             ops_per_s=TENSOR_CORE_BF16_OPS_PER_S, exps=float(pairs)))
     return rows
 
@@ -1531,8 +1541,8 @@ def _scan_bwd_rows(rng, dev) -> list:
     import torch
 
     from repro_torch.kernels.selective_scan import (
-        SCAN_CHUNK, selective_scan_bwd_kernel, selective_scan_bwd_ref,
-        selective_scan_kernel,
+        BWD_CHANNELS, SCAN_CHUNK, selective_scan_bwd_kernel,
+        selective_scan_bwd_ref, selective_scan_kernel,
     )
 
     rows = []
@@ -1548,7 +1558,13 @@ def _scan_bwd_rows(rng, dev) -> list:
 
         def plain(x=x, dt=dt, A=A, B=B, C=C, dy=dy, h0=h0, dhT=dhT):
             return selective_scan_bwd_ref(x, dt, A, B, C, dy, h0, dhT)
-        extra = {}
+        # the partials the launch writes and its second launch reads back
+        # (bytes written plus bytes read): dB, dC one a block, dA one a
+        # batch row
+        nblk = -(-di // BWD_CHANNELS)
+        extra = {"dbdc_partials": nblk,
+                 "dbdc_partial_bytes_moved": 2 * 2 * nblk * b * s * n * 4,
+                 "da_partial_bytes_moved": 2 * b * di * n * 4}
         if (b, s, di, n) == SCAN_BWD_SAME_BITS:
             first, second = kernel(), kernel()
             same = all(bool(torch.equal(p, r))

@@ -24,10 +24,17 @@
 //     channel)), plus the chunk states (4 bytes a (token, channel) over
 //     16), B, C, dB, dC: about 0.71 GB over 3.35 TB/s, 0.21 ms.
 //   - Exponentials: a_t is needed once a (token, channel, state), 537 M
-//     of them, 0.13 ms on the SFU alone.  This kernel recomputes each of
-//     them about 3.25 times (below), 0.42 ms on the SFU: it is bound by
-//     its exponentials, not by the bytes.  Fewer recomputations (a longer
-//     register history, or a_t kept beside h) are later work.
+//     of them, 0.13 ms on the SFU alone.  This kernel computes each of
+//     them about 2.9 times (below): 0.75 in stage A, 0.125 in the last
+//     tile's run-up, 1.0 in the history and 1.0 in the reverse step.
+//   - Measured, it is bound by neither: removing, one at a time, stage A,
+//     the run-up, the reverse's exponentials or the sums over states took
+//     0.02-0.08 ms each off about 1.05 ms, the sums over channels 0.15 ms,
+//     and all of them together left 0.73 ms of loads, shared-memory reads
+//     and the recurrence's own arithmetic.  Keeping a_t beside h (a 16-step
+//     history at 2 states a thread) made it slower, as did launching its
+//     blocks in thread-block clusters to sum dB, dC across them: the
+//     cluster launch alone, with no exchange, added a third to its time.
 //
 // Design:
 //   - The forward saves the state entering every chunk of kChunk = 64
@@ -36,13 +43,15 @@
 //     as in the forward), and walks the chunks from the last to the
 //     first.  In a chunk it first runs the forward recurrence from the
 //     chunk state over all tiles of 16 steps but the last, keeping the
-//     state entering each tile in registers (stage A); then it takes the
-//     tiles from the last to the first (stage B).  In a tile it
-//     recomputes the states of kHist = 8 steps at a time into registers
-//     (the second half's run-up from the tile's start state first), then
-//     runs the reverse recurrence over them.  Every state is recomputed
-//     with the forward's own expression (ex2.approx of dt * (A * log2 e),
-//     the same FMA), so it has the forward's bits.
+//     state entering each half-tile of kHist = 8 steps in shared memory
+//     (stage A); then it takes the tiles from the last to the first
+//     (stage B).  In a tile it recomputes the states of a half-tile into
+//     registers from the state entering it, then runs the reverse
+//     recurrence over them; only the chunk's last tile, which stage A does
+//     not cover, runs its second half's run-up from the tile's start
+//     state.  Every state is recomputed with the forward's own expression
+//     (ex2.approx of dt * (A * log2 e), the same FMA), so it has the
+//     forward's bits.
 //   - Sums over a channel's 16 states (dx, ddt) go over its 4 threads by
 //     the forward's transposing butterfly, 4 steps at a time.  Sums over
 //     channels (dB, dC) go over the warp's 8 channels by a transposing
@@ -60,9 +69,9 @@
 //     channels past di are zero-filled; steps past s are skipped.  16-byte
 //     copies and stores need di and n multiples of 4 and 16-byte aligned
 //     x, dt, dy, dx, ddt, B and C; otherwise 4 bytes at a time.
-//   - 44 KB of shared memory and at most 128 registers a thread (launch
-//     bounds 256 x 2): the grid (di / 64, b), 512 blocks at falcon's
-//     training micro-batch.
+//   - 68 KB of shared memory (24 KB of it the half-tile states) and at most
+//     128 registers a thread, none spilled (launch bounds 256 x 2): the
+//     grid (di / 64, b), 512 blocks at falcon's training micro-batch.
 // Offsets that can pass 2^31 are 64-bit.
 
 #include <cuda_runtime.h>
@@ -82,6 +91,9 @@ constexpr int kSubs = kTile / kHist;
 // steps a chunk state covers: the forward's kChunk, which must be the same
 constexpr int kChunk = 64;
 constexpr int kChunkTiles = kChunk / kTile;
+// half-tiles of a chunk whose entering state stage A keeps: all but the
+// first (the chunk state) and the last tile's second
+constexpr int kHalves = (kChunkTiles - 1) * kSubs;
 constexpr int kFinishThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -127,13 +139,16 @@ struct Smem {
   float C[kStages][kTile][kMaxState];
   // each warp's sums over its 8 channels: [step][dB, dC][state]
   float part[kWarps][kTile][2][kMaxState];
+  // stage A's states entering half-tiles 1 .. kHalves of the chunk, a
+  // thread's 4 states in one float4
+  float4 hsub[kHalves][kThreads];
 };
 
-// One tile load of the block's walk: chunk, tile in the chunk, and
-// whether it is a stage-A (forward) tile.
+// One tile load of the block's walk: chunk, tile in the chunk, whether
+// it is a stage-A (forward) tile, and whether it is the chunk's last.
 struct Item {
   int chunk, tile;
-  bool fwd;
+  bool fwd, last;
 };
 
 // Item m of the walk: chunks from the last to the first; in each, its
@@ -156,6 +171,7 @@ __device__ __forceinline__ Item item_at(int m, int s, int nc) {
   }
   it.fwd = idx < nt - 1;
   it.tile = it.fwd ? idx : 2 * nt - 2 - idx;
+  it.last = it.tile == nt - 1;
   return it;
 }
 
@@ -232,7 +248,8 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
                           int s, int di, int n) {
   constexpr int CH = kChannels;
   constexpr int CH4 = CH / 4;
-  __shared__ __align__(16) Smem sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -305,9 +322,14 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
       h[j] = ch < di && 4 * q + j < n ? hc[off + 4 * q + j] : 0.f;
   };
 
-  // stage A's states entering tiles 1 .. kChunkTiles - 1 of the chunk
-  float hs[kChunkTiles - 1][4];
-  float h[4];
+  auto keep = [&](int half, const float (&hv)[4]) {
+    sm.hsub[half - 1][tid] = make_float4(hv[0], hv[1], hv[2], hv[3]);
+  };
+  auto kept = [&](int half, float (&hv)[4]) {
+    const float4 v = sm.hsub[half - 1][tid];
+    hv[0] = v.x, hv[1] = v.y, hv[2] = v.z, hv[3] = v.w;
+  };
+  float h[4];   // the state entering the tile
 
   const int nitems = walk_items(s, nc);
   if (nitems > 0) load(item_at(0, s, nc), 0);
@@ -321,29 +343,20 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
     const int t0 = (it.chunk * kChunkTiles + it.tile) * kTile;
     const int len = min(kTile, s - t0);
 
-    if (it.tile == 0) {
+    if (it.tile == 0)
       chunk_state(it.chunk, h);
-    } else if (!it.fwd) {
-#pragma unroll
-      for (int j = 1; j < kChunkTiles; ++j)
-        if (j == it.tile) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) h[i] = hs[j - 1][i];
-        }
-    }
+    else if (!it.fwd)
+      kept(it.tile * kSubs, h);
 
     if (it.fwd) {
-      // stage A: a whole tile (only a chunk's last tile can be partial)
+      // stage A: a whole tile (only a chunk's last tile can be partial),
+      // keeping the state entering each following half-tile
 #pragma unroll
-      for (int t = 0; t < kTile; ++t)
+      for (int t = 0; t < kTile; ++t) {
         fwd_step(h, a2, sm.dt[st][t][c], sm.x[st][t][c],
                  *reinterpret_cast<const float4*>(&sm.B[st][t][4 * q]));
-#pragma unroll
-      for (int j = 1; j < kChunkTiles; ++j)
-        if (j == it.tile + 1) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) hs[j - 1][i] = h[i];
-        }
+        if ((t + 1) % kHist == 0) keep(it.tile * kSubs + (t + 1) / kHist, h);
+      }
       continue;
     }
 
@@ -351,11 +364,17 @@ selective_scan_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int sub = kSubs - 1; sub >= 0; --sub) {
       if (sub * kHist >= len) continue;   // every step past s
+      // the state entering the sub-tile: stage A's, or in the chunk's
+      // last tile a run-up from the tile's start
       float hh[4] = {h[0], h[1], h[2], h[3]};
+      if (sub > 0 && !it.last) {
+        kept(it.tile * kSubs + sub, hh);
+      } else {
 #pragma unroll
-      for (int t = 0; t < sub * kHist; ++t)
-        fwd_step(hh, a2, sm.dt[st][t][c], sm.x[st][t][c],
-                 *reinterpret_cast<const float4*>(&sm.B[st][t][4 * q]));
+        for (int t = 0; t < sub * kHist; ++t)
+          fwd_step(hh, a2, sm.dt[st][t][c], sm.x[st][t][c],
+                   *reinterpret_cast<const float4*>(&sm.B[st][t][4 * q]));
+      }
       // hist[u]: the state entering step sub * kHist + u
       float hist[kHist][4];
 #pragma unroll
@@ -496,6 +515,23 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+template <bool kVec>
+cudaError_t launch(dim3 grid, cudaStream_t st, const float* x,
+                   const float* dt, const float* A, const float* B,
+                   const float* C, const float* hc, const float* dy,
+                   const float* dhT, float* dx, float* ddt, float* dBp,
+                   float* dCp, float* dAp, float* dh0, int s, int di, int n) {
+  // above 48 KB of shared memory only after this opt-in (on the current
+  // device)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+  if (attr != cudaSuccess) return attr;
+  selective_scan_bwd_kernel<kVec><<<grid, kThreads, sizeof(Smem), st>>>(
+      x, dt, A, B, C, hc, dy, dhT, dx, ddt, dBp, dCp, dAp, dh0, s, di, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Two launches: the backward recurrence, then the ordered sums.  dBp and
@@ -532,15 +568,11 @@ extern "C" int selective_scan_bwd(const void* x, const void* dt,
   auto st = static_cast<cudaStream_t>(stream);
   const int nblk = (di + kChannels - 1) / kChannels;
   const dim3 grid((unsigned)nblk, (unsigned)b);
-  if (vec)
-    selective_scan_bwd_kernel<true><<<grid, kThreads, 0, st>>>(
-        fx, fdt, fA, fB, fC, fhc, fdy, fdhT, fdx, fddt, fdBp, fdCp, fdAp,
-        fdh0, s, di, n);
-  else
-    selective_scan_bwd_kernel<false><<<grid, kThreads, 0, st>>>(
-        fx, fdt, fA, fB, fC, fhc, fdy, fdhT, fdx, fddt, fdBp, fdCp, fdAp,
-        fdh0, s, di, n);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      vec ? launch<true>(grid, st, fx, fdt, fA, fB, fC, fhc, fdy, fdhT, fdx,
+                         fddt, fdBp, fdCp, fdAp, fdh0, s, di, n)
+          : launch<false>(grid, st, fx, fdt, fA, fB, fC, fhc, fdy, fdhT, fdx,
+                          fddt, fdBp, fdCp, fdAp, fdh0, s, di, n);
   if (err != cudaSuccess) return (int)err;
   const long long total = 2LL * b * s * n + (long long)di * n;
   const long long blocks = (total + kFinishThreads - 1) / kFinishThreads;

@@ -175,6 +175,8 @@ SHAPES = {
     "ragged-2x37x13x5": (2, 37, 13, 5),
     "ragged-1x150x70x3": (1, 150, 70, 3),
     "ragged-2x65x9x1": (2, 65, 9, 1),
+    # 33 blocks, the last with 2 channels (chip_smoke.py's ragged width)
+    "ragged-1x40x2050x5": (1, 40, 2050, 5),
 }
 
 
@@ -236,13 +238,17 @@ def _cu_constant(name, const):
 def test_kernels_share_the_chunk_and_the_block():
     """Both kernels' chunk (the backward recomputes the forward's chunks)
     and the backward's channels a block (its dB/dC partials) are the
-    wrapper's."""
+    wrapper's: 4 threads a channel of 4 states each, 8 channels a warp,
+    64 channels a block; tiles and their half-tiles divide the chunk."""
+    bwd = "selective_scan_bwd"
     assert _cu_constant("selective_scan", "kChunk") == SCAN_CHUNK
-    assert _cu_constant("selective_scan_bwd", "kChunk") == SCAN_CHUNK
-    assert SCAN_CHUNK % _cu_constant("selective_scan_bwd", "kTile") == 0
-    threads = _cu_constant("selective_scan_bwd", "kThreads")
-    assert threads // _cu_constant("selective_scan_bwd", "kTPC") \
-        == BWD_CHANNELS
+    assert _cu_constant(bwd, "kChunk") == SCAN_CHUNK
+    tile, hist = _cu_constant(bwd, "kTile"), _cu_constant(bwd, "kHist")
+    assert SCAN_CHUNK % tile == 0 and tile % hist == 0
+    threads, tpc = _cu_constant(bwd, "kThreads"), _cu_constant(bwd, "kTPC")
+    assert tpc * 4 == _cu_constant(bwd, "kMaxState")
+    assert threads % 32 == 0 and 32 % tpc == 0
+    assert threads // tpc == BWD_CHANNELS
 
 
 def test_backward_wrapper_refuses_what_the_kernel_does_not_take():
