@@ -18,7 +18,10 @@ Phases, one JSON object per line on standard output:
    CUDA-core kernel within rtol 1e-4, atol 1e-5 and in bf16 on the
    tensor-core kernel (head dim 64, 128 and 256, ragged and
    shifted-causal rows included) within one bf16 rounding of the output,
-   at the prefill shape of every served arch, and the log-sum-exp that
+   at the prefill shape of every served arch, in the non-causal forms of
+   an encoder-decoder (its encoder at 16 and 1024 frames, cross attention
+   over 16 frames in prefill and in one-query decode; each row's bound
+   and SDPA call on its own mask), and the log-sum-exp that
    kernel writes for the backward against a plain ``logsumexp`` of the
    scaled, masked scores; the attention backward (dQ, dK, dV: bf16 on
    ``flash_attention_bwd_sm90``, fed the forward kernel's log-sum-exp,
@@ -124,8 +127,9 @@ Phases, one JSON object per line on standard output:
    ``run_dse`` on ``LMAccelerator(granite-8b, use_reduced=False)`` (36
    layers, d 4096, GQA 32/8, d_ff 14336, vocab 49152, batch 2 x seq 32,
    weights drawn from the seed on the card) at ``launch/dse_lm.py``'s
-   defaults (pipeline D, NSGA-II, n_train 48, pop 32, 12 parents, 12
-   generations, 2 QoR inputs; ``LM_DSE``), through a fresh
+   defaults (pipeline D, NSGA-II, pop 32, 12 parents, 12 generations,
+   2 QoR inputs; ``LM_DSE``) but n_train 24 of its 48 (the line's
+   ``reduced``), through a fresh
    ``SynthCache``.  Gates: flash_attention_sm90 launched 36 times per
    forward the accelerator counted; the deployment forwards equal the
    runs paid; every label's energy equal to the host's
@@ -140,7 +144,10 @@ Phases, one JSON object per line on standard output:
    the DSE's first input held against the accelerator's for that genome
    within one bf16 rounding.  Then 8 random genomes of falcon-mamba-7b
    at full width (64 layers) are labeled: selective_scan launched 64
-   times per forward.  Then ``run_dse`` on granite-moe-3b-a800m at full
+   times per forward; and 8 of seamless-m4t-medium at full size (12 + 12
+   layers, 16 encoder frames drawn as the JAX package's LM accelerator
+   draws them): flash_attention_sm90 launched 36 times per forward (12
+   encoder, 12 self, 12 cross attention).  Then ``run_dse`` on granite-moe-3b-a800m at full
    width and depth (32 MoE layers, 40 experts padded to 48, top-8) with
    the same settings and gates (flash_attention_sm90 32 times a
    forward), and two genomes that differ only in their
@@ -148,12 +155,17 @@ Phases, one JSON object per line on standard output:
    different energy (no policy reaches the experts).
 10. ``serve_<arch>`` for each of ``SERVE_ARCHS`` (granite-8b, also
    ``serve_granite-8b_approx``; falcon-mamba-7b, gemma-2b, chatglm3-6b,
-   deepseek-67b, granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b) — the LM
-   serving path at full width and depth (deepseek-67b and phi3.5-moe at
-   the depth of ``SERVE_DEPTH``, in the line's ``reduced``), one model at
-   a time (freed before the next): weights drawn from the seed on the
-   card, then ``serve_batch(cfg, batch=8, prompt_len=1024, gen=32)``,
-   the tensor-core attention kernel launched once an attention layer.
+   deepseek-67b, granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b,
+   seamless-m4t-medium, qwen2-vl-72b) — the LM serving path at full
+   width and depth (deepseek-67b, phi3.5-moe and qwen2-vl-72b at the
+   depth of ``SERVE_DEPTH``, in the line's ``reduced``), one model at a
+   time (freed before the next): weights drawn from the seed on the
+   card, then ``serve_batch(cfg, batch=8, prompt_len=1024, gen=32)``
+   (seamless-m4t-medium against 16 encoder frames, qwen2-vl-72b after
+   256 patch embeddings, both drawn from the seed), the tensor-core
+   attention kernel launched once an attention layer (and once an
+   encoder layer, and once a cross-attention layer in prefill and in
+   each decode step: 408 launches a seamless request).
    The checks run on the first ``SERVE_CHECK_LAYERS`` layers of the same
    model (an MoE arch's routing every token to every real expert, so
    that a rounding cannot swap a token's experts; the timed request
@@ -167,7 +179,7 @@ Phases, one JSON object per line on standard output:
    decode steps of the whole model give device time, the kernel's share
    and the decode's launches and idle share.  The ``_approx`` phase
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
-   at rank 3.
+   at rank 3, at ``SERVE_APPROX_DEPTH`` (18) of its 36 layers.
 11. ``train`` — training through ``launch/train.py``: ``train_gemma-2b``
    runs ``train_loop`` on gemma-2b at full size (18 layers, d 2048, MQA,
    head dim 256, tied 256k vocab; float32 master weights, AdamW, weights
@@ -330,47 +342,74 @@ SERVE = dict(batch=8, prompt_len=1024, gen=32)
 # the archs the serve phases run, in order; the timed request runs at
 # full width and at the depth of SERVE_DEPTH where one is given (the
 # published depth does not fit one 80 GB card in bf16: deepseek-67b's
-# 95 layers are 1.38 GB each, phi3.5-moe's 32 are 2.6 GB each)
+# 95 layers are 1.38 GB each, phi3.5-moe's 32 are 2.6 GB each,
+# qwen2-vl-72b's 80 are 1.76 GB each beside 5.0 GB of embedding and
+# head).  seamless-m4t-medium serves against 16 encoder frames,
+# qwen2-vl-72b after 256 patch embeddings (``train.serve.frontend_inputs``,
+# drawn from the seed), so its prefill attends over 1280 positions
 SERVE_ARCHS = ("granite-8b", "falcon-mamba-7b", "gemma-2b", "chatglm3-6b",
                "deepseek-67b", "granite-moe-3b-a800m",
-               "phi3.5-moe-42b-a6.6b")
-SERVE_DEPTH = {"deepseek-67b": 44, "phi3.5-moe-42b-a6.6b": 26}
+               "phi3.5-moe-42b-a6.6b", "seamless-m4t-medium",
+               "qwen2-vl-72b")
+SERVE_DEPTH = {"deepseek-67b": 44, "phi3.5-moe-42b-a6.6b": 26,
+               "qwen2-vl-72b": 36}
+# the depth of granite-8b served under the approximate FFN policy (the
+# approximate linear route is the slowest path of the serve phases; full
+# depth, 36, until the two encoder-decoder and vision phases joined)
+SERVE_APPROX_DEPTH = 18
 # the serve phases' checks (kernel against plain prefill, each layer's
 # kernel call, the JAX form's spread, the plain route's greedy tokens) run
 # on the first SERVE_CHECK_LAYERS layers of the same model
 SERVE_CHECK_LAYERS = 4
 
-# flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, dtype, label);
-# float32 runs the CUDA-core kernel, bf16 the tensor-core one
-# (ops.KERNEL_ROUTES); one row at least for every route of that table
+# flash-attention rows: (b, h, kvh, sq, sk, d, q_offset, causal, dtype,
+# label); float32 runs the CUDA-core kernel, bf16 the tensor-core one
+# (ops.KERNEL_ROUTES); one row at least for every route of that table,
+# and for every form the main paths run: causal prefill, the encoder's
+# non-causal self-attention, cross attention over fewer keys than one
+# 64-key tile (only the kernel's key mask keeps TMA's zero-filled rows,
+# which score 0, out of the softmax) and its one-query decode
 FLASH_CASES = [
-    (1, 4, 4, 128, 128, 64, 0, "float32", "JAX test shape"),
-    (1, 4, 4, 256, 256, 64, 0, "float32", "JAX test shape"),
-    (1, 8, 2, 1000, 1000, 128, 0, "float32", "ragged, GQA 8/2"),
-    (2, 8, 2, 1, 1056, 128, 1000, "float32",
+    (1, 4, 4, 128, 128, 64, 0, True, "float32", "JAX test shape"),
+    (1, 4, 4, 256, 256, 64, 0, True, "float32", "JAX test shape"),
+    (1, 8, 2, 1000, 1000, 128, 0, True, "float32", "ragged, GQA 8/2"),
+    (2, 8, 2, 1, 1056, 128, 1000, True, "float32",
      "decode offset, one query at position 1000"),
-    (8, 32, 8, 1024, 1024, 128, 0, "bfloat16",
+    (8, 32, 8, 1024, 1024, 128, 0, True, "bfloat16",
      "granite-8b prefill (serving shape), GQA 32/8"),
-    (1, 8, 2, 1000, 1000, 128, 0, "bfloat16",
+    (1, 8, 2, 1000, 1000, 128, 0, True, "bfloat16",
      "ragged, GQA 8/2: keys past 1000 zero-filled by TMA"),
-    (2, 8, 2, 200, 264, 128, 64, "bfloat16",
+    (2, 8, 2, 200, 264, 128, 64, True, "bfloat16",
      "ragged, causal mask shifted by q_offset 64"),
-    (2, 32, 8, 32, 32, 128, 0, "bfloat16",
+    (2, 32, 8, 32, 32, 128, 0, True, "bfloat16",
      "granite-8b LM DSE forward (b 2, s 32): one partial query tile"),
-    (1, 4, 4, 256, 256, 64, 0, "bfloat16", "head dim 64"),
-    (1, 8, 8, 512, 512, 256, 0, "bfloat16", "head dim 256"),
+    (1, 4, 4, 256, 256, 64, 0, True, "bfloat16", "head dim 64"),
+    (1, 8, 8, 512, 512, 256, 0, True, "bfloat16", "head dim 256"),
     # the prefills of the serve phases' other archs (phi3.5-moe's is
     # granite-8b's shape)
-    (8, 8, 1, 1024, 1024, 256, 0, "bfloat16",
+    (8, 8, 1, 1024, 1024, 256, 0, True, "bfloat16",
      "gemma-2b prefill, MQA, head dim 256"),
-    (8, 32, 2, 1024, 1024, 128, 0, "bfloat16",
+    (8, 32, 2, 1024, 1024, 128, 0, True, "bfloat16",
      "chatglm3-6b prefill, GQA 32/2"),
-    (8, 64, 8, 1024, 1024, 128, 0, "bfloat16",
+    (8, 64, 8, 1024, 1024, 128, 0, True, "bfloat16",
      "deepseek-67b prefill, GQA 64/8"),
-    (8, 24, 8, 1024, 1024, 64, 0, "bfloat16",
+    (8, 24, 8, 1024, 1024, 64, 0, True, "bfloat16",
      "granite-moe-3b prefill, GQA 24/8, head dim 64"),
-    (2, 24, 8, 32, 32, 64, 0, "bfloat16",
+    (2, 24, 8, 32, 32, 64, 0, True, "bfloat16",
      "granite-moe-3b LM DSE forward (b 2, s 32)"),
+    # seamless-m4t-medium (16 heads of 64) and qwen2-vl-72b
+    (8, 16, 16, 1024, 16, 64, 0, False, "bfloat16",
+     "seamless-m4t-medium cross attention in prefill: 1024 queries over "
+     "16 encoder frames, fewer keys than one tile"),
+    (8, 16, 16, 1, 16, 64, 0, False, "bfloat16",
+     "seamless-m4t-medium cross attention in decode: one query over 16 "
+     "encoder frames"),
+    (8, 16, 16, 16, 16, 64, 0, False, "bfloat16",
+     "seamless-m4t-medium encoder at the served 16 frames"),
+    (8, 16, 16, 1024, 1024, 64, 0, False, "bfloat16",
+     "encoder self-attention at 1024 frames: full non-causal tiles"),
+    (8, 64, 8, 1280, 1280, 128, 0, True, "bfloat16",
+     "qwen2-vl-72b prefill: 256 patch embeddings + 1024 tokens, GQA 64/8"),
 ]
 # flash-attention backward rows: (b, h, kvh, s, d, causal, dtype, label);
 # the training shapes of the train phase (gemma-2b's micro-batch, d=256
@@ -454,6 +493,10 @@ MAIN_PATH = {
     "serve_deepseek-67b": ("flash_attention_sm90",),
     "serve_granite-moe-3b-a800m": ("flash_attention_sm90",),
     "serve_phi3.5-moe-42b-a6.6b": ("flash_attention_sm90",),
+    # the encoder's, the decoder's and cross attention's (prefill and
+    # each decode step)
+    "serve_seamless-m4t-medium": ("flash_attention_sm90",),
+    "serve_qwen2-vl-72b": ("flash_attention_sm90",),
     # training: the forward kernel, twice a layer with remat, and the
     # backward kernel (bf16: ops.KERNEL_ROUTES, ops.BWD_ROUTES)
     "train_gemma-2b": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
@@ -1236,7 +1279,7 @@ def _flash_rows(rng, dev) -> list:
 
     rep = "src/repro/kernels/flash_attention/kernel.py:77"
     rows = []
-    for b, h, kvh, sq, sk, d, off, dtype, label in FLASH_CASES:
+    for b, h, kvh, sq, sk, d, off, causal, dtype, label in FLASH_CASES:
         dt = getattr(torch, dtype)
         route = kernel_route(dt, d)
         tensor_cores = route == "flash_attention_sm90"
@@ -1246,12 +1289,14 @@ def _flash_rows(rng, dev) -> list:
         q, k, v = draw(b, h, sq, d), draw(b, kvh, sk, d), draw(b, kvh, sk, d)
         bf16 = dt == torch.bfloat16
         esz = q.element_size()
-        pairs = _causal_pairs(sq, sk, off, True) * b * h
+        # the pairs this row's mask leaves visible, causal or not
+        pairs = _causal_pairs(sq, sk, off, causal) * b * h
         ops = 4.0 * d * pairs              # q.k and p.v, 2 flops per FMA
         nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
-        if sq == sk and off == 0:
-            library_fn = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
+        if not causal or (sq == sk and off == 0):
+            library_fn = (
+                lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=c, enable_gqa=True))
         else:
             # SDPA's is_causal aligns the mask to the top-left corner; a
             # shifted mask (j <= i + q_offset) goes in as a boolean mask,
@@ -1264,17 +1309,18 @@ def _flash_rows(rng, dev) -> list:
         rows.append(_kernel_row(
             route,
             f"b={b} h={h} kvh={kvh} sq={sq} sk={sk} d={d} q_offset={off} "
-            f"{'bf16' if bf16 else 'f32'} causal ({label})",
+            f"{'bf16' if bf16 else 'f32'} "
+            f"{'causal' if causal else 'non-causal'} ({label})",
             f"src/repro_torch/csrc/{route}.cu", rep,
-            lambda q=q, k=k, v=v, off=off: flash_attention_kernel(
-                q, k, v, causal=True, q_offset=off),
-            lambda q=q, k=k, v=v, off=off: attention(
-                q, k, v, causal=True, q_offset=off, impl="plain"),
+            lambda q=q, k=k, v=v, off=off, c=causal: flash_attention_kernel(
+                q, k, v, causal=c, q_offset=off),
+            lambda q=q, k=k, v=v, off=off, c=causal: attention(
+                q, k, v, causal=c, q_offset=off, impl="plain"),
             _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
             else _close(FLASH_RTOL, FLASH_ATOL),
             nbytes=nbytes, ops=ops, repeats=10 if bf16 else 20,
             library_fn=library_fn, library_compare=_close(SDPA_RTOL, SDPA_ATOL),
-            extra={"tensor_core_bound_ms": max(
+            extra={"causal": causal, "tensor_core_bound_ms": max(
                 nbytes / HBM_BYTES_PER_S, ops / TENSOR_CORE_BF16_OPS_PER_S)
                 * 1e3},
             ops_per_s=(TENSOR_CORE_BF16_OPS_PER_S if tensor_cores
@@ -2102,21 +2148,38 @@ def _fig89(row: int, seed: int) -> dict:
            "restricted_library": len(rlib),
            "wall_s": {"run_dse": t1 - t0, "approxfpgas": t2 - t1,
                       "random": t3 - t2},
-           "val_pcc": ours.val_pcc, "launches": launches}
+           "val_pcc": ours.val_pcc, "timings_s": ours.timings,
+           "launches": launches}
     return out
+
+
+def _fig89_init(threads: int) -> None:
+    import torch
+
+    torch.set_num_threads(threads)
 
 
 def _fig89_rows(seed: int, total: dict) -> list:
     """Figs. 8/9 on each row of ``FIGS_ROWS``, one spawned process a row
     on the card, all at once: each row's time is mostly its surrogate
     fits on the host, and the rows are independent and deterministic.
-    Each line is printed here, its launches added to ``total``."""
+    Each process gets its share of the host's cores for torch's and the
+    BLAS's CPU threads, as the service's process pool does.  Each line
+    is printed here, its launches added to ``total``."""
     import multiprocessing
+    import os
     from concurrent.futures import ProcessPoolExecutor
 
+    from repro_torch.service.workers import _child_env
+
+    threads = max(1, (os.cpu_count() or 1) // len(FIGS_ROWS))
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(FIGS_ROWS), mp_context=ctx) as pool:
+    with _child_env(OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
+                    MKL_NUM_THREADS="1"), \
+            ProcessPoolExecutor(len(FIGS_ROWS), mp_context=ctx,
+                                initializer=_fig89_init,
+                                initargs=(threads,)) as pool:
         lines = list(pool.map(_fig89, FIGS_ROWS,
                               [seed] * len(FIGS_ROWS)))
     wall = time.perf_counter() - t0
@@ -2267,6 +2330,7 @@ def _fig6(lib, seed: int, total: dict, *, n_train: int = FIG5_TRAIN,
     from repro_torch.core.features import synth
     from repro_torch.core.features.pipelines import build_extractor
     from repro_torch.core.hw import H100_SXM, hw_name
+    from repro_torch.service.workers import _child_env
 
     hw = H100_SXM if hw is None else hw
     rng = np.random.default_rng(seed)
@@ -2297,7 +2361,11 @@ def _fig6(lib, seed: int, total: dict, *, n_train: int = FIG5_TRAIN,
     label_s = time.perf_counter() - t0
     args = [(name, seed, X, y, n_train) for _, _, name, X, y in tasks]
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(FIG6_FIT_WORKERS, mp_context=ctx) as pool:
+    # one BLAS thread a fit process: FIG6_FIT_WORKERS of them share the
+    # host's cores
+    with _child_env(OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
+                    MKL_NUM_THREADS="1"), \
+            ProcessPoolExecutor(FIG6_FIT_WORKERS, mp_context=ctx) as pool:
         results = list(pool.map(_fig6_score, *zip(*args)))
     scores, errors, best = {}, {}, {"qor": {}, "energy": {}}
     for (key, target, name, _, _), (v, why) in zip(tasks, results):
@@ -2583,18 +2651,21 @@ def _device_time(prof, name: str = "") -> tuple:
 def _chunked_form_attention(q, k, v, *, causal=True, impl=None):
     """The function the JAX package's model code runs in prefill
     (``chunked_attention``), as one masked softmax: like the plain
-    version but with q scaled in its own dtype before the float32 cast.
-    Used only to measure how far the reference's own two forms of the
-    function move the full-depth logits."""
+    version but with q scaled in its own dtype before the float32 cast;
+    the top-left causal mask where ``causal``, none otherwise (the
+    encoder, cross attention).  Used only to measure how far the
+    reference's own two forms of the function move the full-depth
+    logits."""
     import torch
 
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     qg = (q * d ** -0.5).float().reshape(b, kvh, h // kvh, sq, d)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
-    mask = torch.arange(sk, device=q.device)[None, :] <= torch.arange(
-        sq, device=q.device)[:, None]
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    if causal:
+        mask = torch.arange(sk, device=q.device)[None, :] <= torch.arange(
+            sq, device=q.device)[:, None]
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
@@ -2644,19 +2715,46 @@ def _chunked_form_scan(x, dt, A, B, C, h0=None, *, impl=None, chunk=128):
     return torch.cat(ys, dim=1), h
 
 
-def _per_layer_check(model, prompts, kernel: str) -> dict:
+def _request_caches(model, b: int, n: int, extra: dict):
+    """Caches of a request of ``n`` text positions: after the front
+    end's ``embeds``, against the encoder's ``enc_embeds`` (``extra``,
+    None where the config takes none)."""
+    vis = 0 if extra.get("embeds") is None else extra["embeds"].shape[1]
+    enc = (0 if extra.get("enc_embeds") is None
+           else extra["enc_embeds"].shape[1])
+    return model.init_caches(b, n + vis, enc)
+
+
+def _kernel_calls(cfg, steps: int = 0) -> dict:
+    """Launches of each serve kernel in one prefill and ``steps`` decode
+    steps of ``cfg``: the attention kernel once an encoder layer, a
+    self-attention layer and a cross-attention layer in prefill, and once
+    a cross-attention layer in each decode step (self-attention decodes
+    in plain PyTorch, as the JAX package does); the scan once a Mamba
+    layer in prefill (decode runs the step's own update)."""
+    kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
+    n_cross = sum(k.cross_attn for k in kinds)
+    n_enc = cfg.n_enc_layers if cfg.is_encoder_decoder else 0
+    return {"flash_attention_sm90": (sum(k.mixer == "attn" for k in kinds)
+                                     + n_enc + n_cross * (1 + steps)),
+            "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
+
+
+def _per_layer_check(model, prompts, kernel: str, extra: dict) -> dict:
     """One more prefill in which every layer's attention (or scan) call
-    runs the kernel and the plain version on that layer's own inputs;
-    the kernel's output goes on.  Fails if any layer's kernel output is
-    outside the kernel rows' tolerance; returns the worst difference and
-    the share of outputs that differ at all."""
+    runs the kernel and the plain version on that layer's own inputs
+    (an encoder-decoder's encoder, self and cross attention calls all
+    held); the kernel's output goes on.  Fails if any layer's kernel
+    output is outside the kernel rows' tolerance, or if the calls are
+    not one a layer that runs the kernel; returns the calls, the worst
+    difference and the share of outputs that differ at all."""
     import torch
 
     import repro_torch.models.attention as attn_mod
     import repro_torch.models.ssm as ssm_mod
     from repro_torch.train.serve import make_prefill_step
 
-    worst, differ, total = 0.0, 0, 0
+    worst, differ, total, calls = 0.0, 0, 0, 0
     if kernel.startswith("flash_attention"):
         mod, attr = attn_mod, "attn_op"
         compare = _close(FLASH_BF16_RTOL, FLASH_BF16_ATOL)
@@ -2666,7 +2764,7 @@ def _per_layer_check(model, prompts, kernel: str) -> dict:
     orig = getattr(mod, attr)
 
     def both(*args, impl=None, **kw):
-        nonlocal worst, differ, total
+        nonlocal worst, differ, total, calls
         got = orig(*args, impl="kernel", **kw)
         want = orig(*args, impl="plain", **kw)
         compare(got, want, f"{kernel} on layer inputs")
@@ -2675,25 +2773,32 @@ def _per_layer_check(model, prompts, kernel: str) -> dict:
         w0 = want[0] if isinstance(want, tuple) else want
         differ += int((g0 != w0).sum())
         total += g0.numel()
+        calls += 1
         return got
 
     setattr(mod, attr, both)
     try:
         b, L = prompts.shape
-        make_prefill_step(model)(prompts, model.init_caches(b, L))
+        make_prefill_step(model)(prompts, _request_caches(model, b, L, extra),
+                                 **extra)
         torch.cuda.synchronize()
     finally:
         setattr(mod, attr, orig)
-    return {"max_abs_err": worst, "share_of_outputs_differing":
-            differ / max(total, 1)}
+    want_calls = _kernel_calls(model.cfg)[kernel]
+    check(calls == want_calls,
+          f"per-layer check: {calls} {kernel} calls, not {want_calls}")
+    return {"calls": calls, "max_abs_err": worst,
+            "share_of_outputs_differing": differ / max(total, 1)}
 
 
-def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
+def _profile_request(model, prompts, kernel: str, extra: dict,
+                     steps: int = 4) -> dict:
     """One prefill and ``steps`` decode steps under ``torch.profiler``:
     device (kernel) time against host wall time, the ported kernel's
     share of the prefill, and the decode's launches and idle share per
-    step.  Profiling adds host time, so the walls here are above the
-    unprofiled run's."""
+    step.  Only the device is traced: tracing every host op as well cost
+    5-24 s a request, most of a serve phase.  Profiling still adds host
+    time, so the walls here are above the unprofiled run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2702,21 +2807,22 @@ def _profile_request(model, prompts, kernel: str, steps: int = 4) -> dict:
     kname = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
              "selective_scan": "selective_scan_kernel"}[kernel]
     b, L = prompts.shape
-    caches = model.init_caches(b, L + steps + 1)
+    caches = _request_caches(model, b, L + steps + 1, extra)
+    pos0 = L + (0 if extra.get("embeds") is None else extra["embeds"].shape[1])
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof_p:
         t0 = time.perf_counter()
-        logits, caches = prefill(prompts, caches)
+        logits, caches = prefill(prompts, caches, **extra)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         pre_wall = time.perf_counter() - t0
     with profile(activities=acts) as prof_d:
         t0 = time.perf_counter()
         for i in range(steps):
-            nxt, _, caches = decode(caches, nxt, L + i)
+            nxt, _, caches = decode(caches, nxt, pos0 + i)
         torch.cuda.synchronize()
         dec_wall = time.perf_counter() - t0
     pre_dev, _ = _device_time(prof_p)
@@ -2743,7 +2849,8 @@ def _prefix_model(model, n_layers: int):
     another (and, under a binding capacity, the slots of every later
     token of that expert): the logits jump, by up to 6.4 on phi3.5-moe,
     and the kernel-vs-plain logits would say more of the router than of
-    the kernel."""
+    the kernel.  An encoder-decoder's encoder is kept whole (its 16
+    frames cost little), beside the first decoder layers."""
     import copy
     from dataclasses import replace
 
@@ -2787,6 +2894,10 @@ def _serve_widths(cfg) -> dict:
                    padded_experts=cfg.padded_experts,
                    top_k=cfg.n_experts_active,
                    capacity_factor=cfg.capacity_factor)
+    if cfg.is_encoder_decoder:
+        out.update(n_enc_layers=cfg.n_enc_layers)
+    if cfg.frontend != "none":
+        out.update(frontend=cfg.frontend, frontend_len=cfg.frontend_len)
     return out
 
 
@@ -2802,7 +2913,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_model, serve_batch
     from repro_torch.models import ApproxPolicy
-    from repro_torch.train.serve import make_prefill_step
+    from repro_torch.train.serve import frontend_inputs, make_prefill_step
 
     name = f"serve_{arch}" + ("_approx" if approx else "")
     published = get_config(arch)
@@ -2819,9 +2930,19 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     if approx:
         policy = ApproxPolicy({"ffn_in": ("mul8s_mitchell", 3),
                                "ffn_out": ("mul8s_mitchell", 3)})
+        cfg = replace(cfg, n_layers=SERVE_APPROX_DEPTH)
+        cut = {"n_layers": {"published": published.n_layers,
+                            "run": cfg.n_layers},
+               "why": "the script's 1200 s limit: the approximate FFN "
+                      "route prefills all 36 layers in 8.9 s and decodes "
+                      "at 20 tokens/s"}
     b, L, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
     g = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (b, L), generator=g)
+    # the stub front ends' inputs (encoder frames, patch embeddings), the
+    # same for the timed request and the checks
+    extra = {k: None if v is None else v.cuda()
+             for k, v in frontend_inputs(cfg, b, seed=seed).items()}
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2834,7 +2955,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     t0 = time.perf_counter()
     tokens, tps = serve_batch(cfg, batch=b, prompt_len=L, gen=gen,
                               policy=policy, prompts=prompts, model=model,
-                              timings=timings)
+                              timings=timings, **extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -2846,14 +2967,15 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
           f"{name}: token ids outside the vocabulary")
     check(torch.equal(tokens[:, :L].cpu(), prompts.to(torch.int32)),
           f"{name}: prompt not carried into the tokens")
-    kinds = [k for _ in range(cfg.n_superblocks) for k in cfg.block_pattern]
-    n_attn = sum(k.mixer == "attn" for k in kinds)
-    n_layers = {"flash_attention_sm90": n_attn,
-                "selective_scan": sum(k.mixer == "mamba" for k in kinds)}
+    # once a layer that runs the kernel, and once a cross-attention layer
+    # a decode step (``_kernel_calls``)
+    n_layers = _kernel_calls(cfg)
+    want_launches = _kernel_calls(cfg, steps=gen - 1)
     for k in MAIN_PATH[name]:
-        check(launches[k] == n_layers[k],
+        check(launches[k] == want_launches[k],
               f"{name}: {k} launched {launches[k]} times in one request, "
-              f"not once for each of the {n_layers[k]} layers that run it")
+              f"not the {want_launches[k]} of its {n_layers[k]} prefill "
+              f"calls and {gen - 1} decode steps")
     aux = (float(model.last_aux) if cfg.n_experts else None)
     if cfg.n_experts:
         check(0 < aux < float("inf"),
@@ -2865,8 +2987,9 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     t_check = time.perf_counter()
     logits = {}
     for impl in ("kernel", "plain"):
-        caches = part.init_caches(b, L)
-        lg, _ = make_prefill_step(part, impl=impl)(prompts.cuda(), caches)
+        caches = _request_caches(part, b, L, extra)
+        lg, _ = make_prefill_step(part, impl=impl)(prompts.cuda(), caches,
+                                                   **extra)
         del caches
         logits[impl] = lg.float()
     torch.cuda.synchronize()
@@ -2874,7 +2997,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
           f"{name}: prefill logits not finite")
     err = float((logits["kernel"] - logits["plain"]).abs().max())
     kernel = MAIN_PATH[name][0]
-    layers = _per_layer_check(part, prompts.cuda(), kernel)
+    layers = _per_layer_check(part, prompts.cuda(), kernel, extra)
     # the same prefill with the JAX model code's own form of the function
     # (plain route otherwise): how far the reference's two forms of it
     # move these logits, measured on this model and these prompts
@@ -2888,7 +3011,7 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     setattr(mod, attr, form)
     try:
         lg, _ = make_prefill_step(part, impl="plain")(
-            prompts.cuda(), part.init_caches(b, L))
+            prompts.cuda(), _request_caches(part, b, L, extra), **extra)
     finally:
         setattr(mod, attr, orig)
     spread = float((lg.float() - logits["plain"]).abs().max())
@@ -2901,17 +3024,24 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
     check(err <= tol, f"{name}: kernel vs plain prefill logits differ "
                       f"by {err:.4g} (tolerance {tol:.4g})")
     k_tokens, _ = serve_batch(part.cfg, batch=b, prompt_len=L, gen=gen,
-                              policy=policy, prompts=prompts, model=part)
+                              policy=policy, prompts=prompts, model=part,
+                              **extra)
     plain_tokens, _ = serve_batch(part.cfg, batch=b, prompt_len=L, gen=gen,
                                   policy=policy, prompts=prompts, model=part,
-                                  impl="plain")
+                                  impl="plain", **extra)
     agree = float((k_tokens[:, L:] == plain_tokens[:, L:]).float().mean())
     check_s = time.perf_counter() - t_check
-    prof = _profile_request(model, prompts.cuda(), MAIN_PATH[name][0])
+    t_prof = time.perf_counter()
+    prof = _profile_request(model, prompts.cuda(), MAIN_PATH[name][0], extra)
+    profile_s = time.perf_counter() - t_prof
     out = {
         "phase": name, "arch": arch, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "widths": _serve_widths(cfg),
         "vocab": cfg.padded_vocab, **SERVE,
+        "frontend_len": (0 if extra["embeds"] is None
+                         else extra["embeds"].shape[1]),
+        "enc_frames": (0 if extra["enc_embeds"] is None
+                       else extra["enc_embeds"].shape[1]),
         "policy": ({"ffn_in": ["mul8s_mitchell", 3],
                     "ffn_out": ["mul8s_mitchell", 3]} if approx else None),
         "reduced": cut,
@@ -2921,9 +3051,11 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
         "max_memory_allocated": peak,
         "moe_aux_loss": aux,
         "launches": launches,
+        "launches_expected": {k: want_launches[k] for k in MAIN_PATH[name]},
         "launches_per_layer": {k: launches[k] / n_layers[k]
                                for k in MAIN_PATH[name]},
         "check_layers": part.cfg.n_layers, "check_s": check_s,
+        "profile_s": profile_s,
         "check_moe_top_k": part.cfg.n_experts_active or None,
         "logits_kernel_vs_plain_max_abs": err,
         "per_layer_kernel_vs_plain": layers,
@@ -3575,10 +3707,18 @@ def phase_train(seed: int) -> list:
 
 
 # the lm_dse phase: ``launch/dse_lm.py``'s defaults on granite-8b at full
-# width and depth, then 8 random genomes of falcon-mamba-7b
-LM_DSE = dict(n_train=48, pop_size=32, n_parents=12, n_generations=12,
+# width and depth but half its 48 training genomes (``LM_DSE_REDUCED``),
+# then 8 random genomes of falcon-mamba-7b
+LM_DSE = dict(n_train=24, pop_size=32, n_parents=12, n_generations=12,
               n_qor_samples=2)
-LM_FALCON_GENOMES = 8
+LM_DSE_REDUCED = {
+    "n_train": {"dse_lm_default": 48, "run": LM_DSE["n_train"]},
+    "why": "the script's 1200 s limit: labeling is most of the phase, "
+           "two QoR forwards and one deployment forward a training "
+           "genome at 0.3-0.4 s each"}
+# random genomes labeled at full size on falcon-mamba-7b and
+# seamless-m4t-medium
+LM_LABEL_GENOMES = 8
 # QoR of the LM's designs, in dB: the JAX package's and the port's QoR on
 # the same weights differ by up to 0.22 dB on the CPU at the reduced
 # configs (tests/test_torch_lm_dse.py holds them to 0.5).  At full depth
@@ -3704,7 +3844,8 @@ def _lm_dse_run(acc, lib, seed: int, what: str) -> dict:
     line = {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": acc.batch, "seq": acc.seq,
-        **w, "pipeline": "D", "strategy": "nsga2", "reduced": None,
+        **w, "pipeline": "D", "strategy": "nsga2",
+        "reduced": LM_DSE_REDUCED,
         "wall_s": wall, "timings_s": res.timings, "val_pcc": res.val_pcc,
         "labels": int(len(np.unique(g_all, axis=0))),
         "forwards": forwards, "synth_cache": stats,
@@ -3757,25 +3898,79 @@ def _lm_expert_pair(acc, lib, genome, what: str) -> dict:
             "launches": launches}
 
 
+def _lm_labels(arch: str, kernel: str, phase: str, lib, seed: int,
+               n_qor_samples: int) -> dict:
+    """``LM_LABEL_GENOMES`` random genomes of ``arch`` at full width and
+    depth labeled through ``LMAccelerator`` (a fresh ``SynthCache``), and
+    their gates: the exact genome at the cap, every energy the host's
+    ``adjusted_compute``, and ``kernel`` launched ``_kernel_calls`` times
+    a forward (seamless-m4t-medium: 12 encoder, 12 self and 12 cross
+    attention launches).  Emits the line ``phase``; returns its
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import LMAccelerator
+    from repro_torch.configs import get_config
+    from repro_torch.core.dse import default_labeler
+    from repro_torch.core.features import synth
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.qor import PSNR_CAP
+
+    cfg = get_config(arch)
+    acc = LMAccelerator(cfg, use_reduced=False, seed=seed, device="cuda")
+    genomes = _random_genomes(acc, lib, LM_LABEL_GENOMES,
+                              np.random.default_rng(seed))
+    labeler = default_labeler(acc, lib, n_qor_samples=n_qor_samples,
+                              synth_cache=synth.SynthCache(), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    labels, wall, launches = _label_once(labeler, genomes)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = dict(acc.forwards)
+    what = f"{phase} {arch}"
+    _check_labels(labels, len(genomes), what)
+    check(labels["qor"][0] == PSNR_CAP,
+          f"{what}: the exact genome's QoR is not the cap")
+    per_forward = _kernel_calls(cfg)[kernel]
+    check(launches[kernel] == per_forward * sum(fwd.values()),
+          f"{what}: {kernel} launched {launches[kernel]} times for "
+          f"{sum(fwd.values())} forwards of {per_forward} calls each")
+    for g, e in zip(genomes, labels["energy"]):
+        check(_lm_energy(acc, lib, g, H100_SXM) == e,
+              f"{what}: energy differs from the host's adjusted_compute")
+    emit({
+        "phase": phase, "arch": cfg.name,
+        "n_layers": cfg.n_layers, "genomes": len(genomes), "wall_s": wall,
+        "forwards": fwd, f"{kernel}_per_forward": per_forward,
+        "qor": labels["qor"].tolist(),
+        "energy": labels["energy"].tolist(),
+        "flops": labels["flops"].tolist(),
+        "hbm_bytes": labels["hbm_bytes"].tolist(),
+        "sim_s": float(labels["sim_time"].sum()),
+        "synth_s": float(labels["synth_time"].sum()),
+        "max_memory_allocated": peak,
+        "param_bytes": acc.model.param_bytes(), "launches": launches,
+    })
+    acc.release()
+    del acc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_lm_dse(seed: int) -> dict:
     """The paper's DSE on granite-8b at full width and depth, the budget
-    tier of its front served, falcon-mamba-7b's labels, then the DSE on
-    granite-moe-3b (module docstring, phase 9); each model freed before
-    the next."""
+    tier of its front served, falcon-mamba-7b's and seamless-m4t-medium's
+    labels, then the DSE on granite-moe-3b (module docstring, phase 9);
+    each model freed before the next."""
     import os
     import tempfile
 
-    import numpy as np
     import torch
 
     from repro_torch import _build
     from repro_torch.accel import LMAccelerator
     from repro_torch.configs import get_config
     from repro_torch.core.acl.library import default_library
-    from repro_torch.core.dse import default_labeler
-    from repro_torch.core.features import synth
-    from repro_torch.core.hw import H100_SXM
-    from repro_torch.core.qor import PSNR_CAP
     from repro_torch.launch.serve import (
         build_model, policy_from_front, serve_batch,
     )
@@ -3876,43 +4071,14 @@ def phase_lm_dse(seed: int) -> dict:
                 "genome": list(budget_sel.point.genome),
                 "peak": max(peak, serve_peak)}
 
-    # falcon-mamba-7b: labels of random genomes at full width and depth
-    fcfg = get_config("falcon-mamba-7b")
-    facc = LMAccelerator(fcfg, use_reduced=False, seed=seed, device="cuda")
-    fg = _random_genomes(facc, lib, LM_FALCON_GENOMES,
-                         np.random.default_rng(seed))
-    labeler = default_labeler(facc, lib, n_qor_samples=w["n_qor_samples"],
-                              synth_cache=synth.SynthCache(), device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    flabels, fwall, flaunch = _label_once(labeler, fg)
-    fpeak = torch.cuda.max_memory_allocated()
-    _add_launches(total, flaunch)
-    ffwd = dict(facc.forwards)
-    _check_labels(flabels, len(fg), "lm_dse falcon-mamba-7b")
-    check(flabels["qor"][0] == PSNR_CAP,
-          "lm_dse falcon-mamba-7b: the exact genome's QoR is not the cap")
-    check(flaunch["selective_scan"] == fcfg.n_layers * sum(ffwd.values()),
-          f"lm_dse falcon-mamba-7b: selective_scan launched "
-          f"{flaunch['selective_scan']} times for {sum(ffwd.values())} "
-          f"forwards of {fcfg.n_layers} layers")
-    for g, e in zip(fg, flabels["energy"]):
-        check(_lm_energy(facc, lib, g, H100_SXM) == e,
-              "lm_dse falcon-mamba-7b: energy differs from the host's "
-              "adjusted_compute")
-    falcon_out = {
-        "phase": "lm_dse_falcon", "arch": fcfg.name,
-        "n_layers": fcfg.n_layers, "genomes": len(fg), "wall_s": fwall,
-        "forwards": ffwd, "qor": flabels["qor"].tolist(),
-        "energy": flabels["energy"].tolist(),
-        "sim_s": float(flabels["sim_time"].sum()),
-        "synth_s": float(flabels["synth_time"].sum()),
-        "max_memory_allocated": fpeak,
-        "param_bytes": facc.model.param_bytes(), "launches": flaunch,
-    }
-    emit(falcon_out)
-    facc.release()
-    del facc
-    torch.cuda.empty_cache()
+    # falcon-mamba-7b and seamless-m4t-medium: labels of random genomes
+    # at full width and depth
+    for arch, kernel, phase in (
+            ("falcon-mamba-7b", "selective_scan", "lm_dse_falcon"),
+            ("seamless-m4t-medium", "flash_attention_sm90",
+             "lm_dse_seamless")):
+        _add_launches(total, _lm_labels(arch, kernel, phase, lib, seed,
+                                        w["n_qor_samples"]))
 
     # granite-moe-3b: the DSE at full width and depth, then two genomes
     # that differ only in their expert genes

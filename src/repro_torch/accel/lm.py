@@ -77,26 +77,65 @@ def proj_classes_for(cfg: ModelConfig) -> List[Tuple[str, float]]:
     return [(c, w / total) for c, w in out]
 
 
-def _projections(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
-    """(class, k, n) of every projection matmul of one forward, the LM
-    head last."""
+# encoder frames of an encoder-decoder's forward (the JAX package's
+# ``_forward`` and ``build_deploy`` draw 16)
+ENC_FRAMES = 16
+
+
+def _projections(cfg: ModelConfig, m: int,
+                 m_enc: int = 0) -> List[Tuple[str, int, int, int]]:
+    """(class, rows, k, n) of every projection matmul of one forward over
+    ``m`` decoder rows (and ``m_enc`` encoder rows): an encoder-decoder's
+    encoder layers first, over ``m_enc``; each decoder layer's cross
+    attention projects its queries and output over ``m``, the encoder's
+    keys and values over ``m_enc``; the LM head last."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    out: List[Tuple[str, int, int]] = []
+    q_n, kv_n = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def attn(rows, kv_rows):
+        return [("qkv", rows, d, q_n), ("qkv", kv_rows, d, kv_n),
+                ("qkv", kv_rows, d, kv_n), ("attn_out", rows, q_n, d)]
+
+    def mlp(rows):
+        return [("ffn_in", rows, d, cfg.d_ff), ("ffn_in", rows, d, cfg.d_ff),
+                ("ffn_out", rows, cfg.d_ff, d)]
+
+    out: List[Tuple[str, int, int, int]] = []
+    if cfg.is_encoder_decoder:
+        for _ in range(cfg.n_enc_layers):
+            out += attn(m_enc, m_enc) + mlp(m_enc)
     for _ in range(cfg.n_superblocks):
         for kind in cfg.block_pattern:
             if kind.mixer == "attn":
-                out += [("qkv", d, cfg.n_heads * hd),
-                        ("qkv", d, cfg.n_kv_heads * hd),
-                        ("qkv", d, cfg.n_kv_heads * hd),
-                        ("attn_out", cfg.n_heads * hd, d)]
+                out += attn(m, m)
             else:
                 di, n, dtr = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank
-                out += [("ssm_in", d, 2 * di), ("ssm_out", di, dtr + 2 * n),
-                        ("ssm_out", dtr, di), ("ssm_out", di, d)]
+                out += [("ssm_in", m, d, 2 * di),
+                        ("ssm_out", m, di, dtr + 2 * n),
+                        ("ssm_out", m, dtr, di), ("ssm_out", m, di, d)]
+            if kind.cross_attn:
+                out += attn(m, m_enc)
             if kind.mlp == "dense":
-                out += [("ffn_in", d, cfg.d_ff), ("ffn_in", d, cfg.d_ff),
-                        ("ffn_out", cfg.d_ff, d)]
-    return out + [("lm_head", d, cfg.padded_vocab)]
+                out += mlp(m)
+    return out + [("lm_head", m, d, cfg.padded_vocab)]
+
+
+def _attention_calls(cfg: ModelConfig, s: int,
+                     s_enc: int = 0) -> List[Tuple[int, int, float]]:
+    """(query rows, key rows, visible pairs) of each attention core of one
+    forward over ``s`` positions: the encoder's (non-causal over
+    ``s_enc``), each self-attention layer's (causal) and each cross
+    attention's (non-causal, ``s`` queries over ``s_enc`` keys)."""
+    out: List[Tuple[int, int, float]] = []
+    if cfg.is_encoder_decoder:
+        out += [(s_enc, s_enc, float(s_enc * s_enc))] * cfg.n_enc_layers
+    for _ in range(cfg.n_superblocks):
+        for kind in cfg.block_pattern:
+            if kind.mixer == "attn":
+                out.append((s, s, s * (s + 1) / 2.0))
+            if kind.cross_attn:
+                out.append((s, s_enc, float(s * s_enc)))
+    return out
 
 
 # the expert classes: the MoE layer never applies a policy to them
@@ -233,6 +272,22 @@ class LMAccelerator(Accelerator):
             0, self.cfg.vocab_size, size=(n, self.batch, self.seq)
         ).astype(np.int32)
 
+    def _enc_embeds(self, device, zeros: bool = False):
+        """An encoder-decoder forward's source frames (else None): (batch,
+        16, d) drawn as the JAX package's ``_forward`` draws them, from
+        ``np.random.default_rng(seed)`` x 0.1, so both packages label on
+        the same inputs; zeros in bf16 for the deployment, as its
+        ``build_deploy``.  The vision front end gets no embeddings here,
+        as in the JAX package."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        shape = (self.batch, ENC_FRAMES, self.cfg.d_model)
+        if zeros:
+            return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        rng = np.random.default_rng(self.seed)
+        enc = rng.standard_normal(shape).astype(np.float32) * 0.1
+        return torch.from_numpy(enc).to(device)
+
     # -- policy plumbing ------------------------------------------------------
     def _policy(self, circuits: Sequence[Circuit],
                 ranks: Optional[Sequence[Optional[int]]] = None) -> ApproxPolicy:
@@ -279,7 +334,8 @@ class LMAccelerator(Accelerator):
         outs = []
         for tok in inputs:
             t = torch.from_numpy(np.ascontiguousarray(tok)).to(dev)
-            logits = model(t, policy=policy, impl=impl)
+            logits = model(t, policy=policy, impl=impl,
+                           enc_embeds=self._enc_embeds(dev))
             with self._lock:
                 self.forwards[kind] += 1
             outs.append(logits.float().cpu().numpy())
@@ -350,9 +406,10 @@ class LMAccelerator(Accelerator):
         model = self._ensure_model(device)
         tok = torch.from_numpy(self.sample_inputs(1, seed=1)[0]).to(
             model.device)
+        enc = self._enc_embeds(model.device, zeros=True)
 
         def fn(model, tok, *, path="mxu"):
-            out = model(tok, policy=policy)
+            out = model(tok, policy=policy, enc_embeds=enc)
             with self._lock:
                 self.forwards["deploy"] += 1
             return out
@@ -377,15 +434,18 @@ class LMAccelerator(Accelerator):
 
     def deploy_cost(self, specs: Sequence, inputs=None) -> Dict[str, float]:
         """Analytic {'flops', 'hbm_bytes'} of ``build_deploy(specs)``'s
-        forward over m = batch x seq tokens: each exact projection
+        forward over m = batch x seq tokens (and batch x 16 encoder rows
+        for an encoder-decoder, ``_projections``): each exact projection
         2·m·k·n flops and its bf16 operands; each approximated one as
         ``synth.grouped_cost`` counts a one-group rank-k product ((1 +
         rank) products, float32 operands, the U/V tables) plus its
         gathers, U[x] (m·k·r) and V[w] (k·n·r) in float32, each written
-        and read once (the route materializes them); the attention core
-        (q·k and p·v over the causal pairs, bf16), the scan
-        (``chip_smoke.py``'s count) and the MoE layers (``_moe_cost``);
-        the LM head and the experts always exact."""
+        and read once (the route materializes them); each attention core
+        (q·k and p·v over its visible pairs, bf16: causal self-attention,
+        the encoder's and cross attention's non-causal pairs,
+        ``_attention_calls``), the scan (``chip_smoke.py``'s count) and
+        the MoE layers (``_moe_cost``); the LM head and the experts
+        always exact."""
         from ..core.features.synth import grouped_cost
 
         cfg = self.cfg
@@ -393,9 +453,9 @@ class LMAccelerator(Accelerator):
         spec_of = {slot.name: sp for slot, sp in zip(self.slots, specs)
                    if slot.name not in exact_only and not sp.is_exact}
         b, s = self.batch, self.seq
-        m = b * s
+        s_enc = ENC_FRAMES if cfg.is_encoder_decoder else 0
         flops = byts = 0.0
-        for cls, k, n in _projections(cfg):
+        for cls, m, k, n in _projections(cfg, b * s, b * s_enc):
             sp = spec_of.get(cls)
             if sp is None:
                 flops += 2.0 * m * k * n
@@ -404,15 +464,12 @@ class LMAccelerator(Accelerator):
                 c = grouped_cost(m, n, [(0, k)], [sp])
                 flops += c["flops"]
                 byts += c["hbm_bytes"] + 2 * 4.0 * sp.rank * (m * k + k * n)
-        kinds = [kd for _ in range(cfg.n_superblocks)
-                 for kd in cfg.block_pattern]
-        n_attn = sum(kd.mixer == "attn" for kd in kinds)
-        n_mamba = len(kinds) - n_attn
-        if n_attn:
-            hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-            pairs = s * (s + 1) / 2.0
-            flops += n_attn * 4.0 * b * h * hd * pairs
-            byts += n_attn * 2.0 * (2 * b * h * s * hd + 2 * b * kvh * s * hd)
+        hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        for sq, sk, pairs in _attention_calls(cfg, s, s_enc):
+            flops += 4.0 * b * h * hd * pairs
+            byts += 2.0 * (2 * b * h * sq * hd + 2 * b * kvh * sk * hd)
+        n_mamba = sum(kd.mixer == "mamba" for kd in cfg.block_pattern
+                      ) * cfg.n_superblocks
         if n_mamba:
             di, n = cfg.d_inner, cfg.ssm_state
             flops += n_mamba * float(b) * s * di * (7 * n + 1)

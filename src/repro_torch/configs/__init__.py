@@ -1,7 +1,5 @@
-"""Architecture registry of the port: the archs whose every layer kind
-the port can build.  The JAX package's registry lists more; asking the
-port for one of those raises ``KeyError`` saying its family is not
-ported yet."""
+"""Architecture registry of the port: every arch of the JAX package's
+registry, one module each."""
 from importlib import import_module
 from typing import Dict, List
 
@@ -10,33 +8,24 @@ _MODULES = {
     "gemma-2b": "gemma_2b",
     "chatglm3-6b": "chatglm3_6b",
     "granite-8b": "granite_8b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "jamba-1.5-large-398b": "jamba_15_large",
     "falcon-mamba-7b": "falcon_mamba_7b",
-}
-
-# archs of the JAX package's registry that the port cannot build yet,
-# with the family that holds each back
-_NOT_PORTED = {
-    "seamless-m4t-medium": "encdec",
-    "qwen2-vl-72b": "vlm",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCHS: List[str] = list(_MODULES)
 
 
 def get_config(name: str):
-    """Fetch an architecture config by its id (or a unique prefix of a
-    ported one, e.g. 'granite')."""
+    """Fetch an architecture config by its id (or a unique prefix, e.g.
+    'jamba')."""
     if name not in _MODULES:
-        if name in _NOT_PORTED:
-            raise KeyError(
-                f"arch {name!r}: family {_NOT_PORTED[name]} is not ported "
-                f"yet; ported: {ARCHS}")
         matches = [k for k in _MODULES if k.startswith(name)]
         if len(matches) != 1:
-            raise KeyError(f"unknown arch {name!r}; ported: {ARCHS}")
+            raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
         name = matches[0]
     return import_module(f".{_MODULES[name]}", __package__).CONFIG
 

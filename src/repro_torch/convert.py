@@ -83,29 +83,41 @@ def lm_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
 
     ``tree["blocks"]["layer<i>"]`` leaves carry a leading super-block
     axis; super-block ``sb``'s position ``i`` becomes layer
-    ``sb * len(cfg.block_pattern) + i``.  Tensors keep the tree's dtype;
-    ``load_state_dict`` casts each to its parameter's storage dtype."""
+    ``sb * len(cfg.block_pattern) + i`` (its ``cross`` module, where the
+    layer has one, the layer's cross attention).  An encoder-decoder's
+    ``tree["encoder"]["blocks"]`` leaves (``attn``, ``mlp``) carry a
+    leading axis of ``n_enc_layers`` and become ``encoder.layers.<j>``;
+    ``tree["encoder"]["final_norm"]`` the encoder's final norm.  Tensors
+    keep the tree's dtype; ``load_state_dict`` casts each to its
+    parameter's storage dtype."""
     def t(a):
         return torch.from_numpy(np.array(a, copy=True))
 
-    pattern = cfg.block_pattern
-    nsb = cfg.n_superblocks
-    out: Dict[str, torch.Tensor] = {"embed": t(tree["embed"])}
-    for i, _kind in enumerate(pattern):
-        layer = tree["blocks"][f"layer{i}"]
-        for mod_name, params in layer.items():
+    def unstack(blocks, n, unit, what, prefix, period=1, i=0):
+        for mod_name, params in blocks.items():
             for name, arr in params.items():
                 arr = np.asarray(arr)
-                if arr.shape[0] != nsb:
+                if arr.shape[0] != n:
                     raise ValueError(
-                        f"layer{i}.{mod_name}.{name}: leading axis "
-                        f"{arr.shape[0]}, expected {nsb} super-blocks")
-                for sb in range(nsb):
-                    j = sb * len(pattern) + i
-                    out[f"layers.{j}.{mod_name}.{name}"] = t(arr[sb])
+                        f"{what}.{mod_name}.{name}: leading axis "
+                        f"{arr.shape[0]}, expected {n} {unit}")
+                for sb in range(n):
+                    out[f"{prefix}.{sb * period + i}.{mod_name}.{name}"] = (
+                        t(arr[sb]))
+
+    pattern = cfg.block_pattern
+    out: Dict[str, torch.Tensor] = {"embed": t(tree["embed"])}
+    for i, _kind in enumerate(pattern):
+        unstack(tree["blocks"][f"layer{i}"], cfg.n_superblocks,
+                "super-blocks", f"layer{i}", "layers", len(pattern), i)
     out["final_norm"] = t(tree["final_norm"])
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"])
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        unstack(enc["blocks"], cfg.n_enc_layers, "encoder layers",
+                "encoder", "encoder.layers")
+        out["encoder.final_norm"] = t(enc["final_norm"])
     return out
 
 

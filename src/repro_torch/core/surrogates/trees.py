@@ -30,38 +30,45 @@ class _Node:
         return self.feature < 0
 
 
-def _best_split(X, y, feat_idx, min_leaf):
-    """Exhaustive best (feature, threshold) by SSE reduction."""
+def _best_split(X, y, feat_idx, min_leaf, base):
+    """Exhaustive best (feature, threshold) by SSE reduction; ``base`` is
+    the node's SSE, ``((y - y.mean()) ** 2).sum()``.
+
+    All candidate features are scored at once, one column each; every
+    column's sums run in the order a one-feature loop would add them, so
+    the scores, and the split (the first feature of the largest gain),
+    are that loop's to the bit."""
     n = len(y)
-    best = (None, None, 0.0)  # feature, threshold, gain
-    base = ((y - y.mean()) ** 2).sum()
-    for j in feat_idx:
-        order = np.argsort(X[:, j], kind="stable")
-        xs, ys = X[order, j], y[order]
-        csum = np.cumsum(ys)
-        csq = np.cumsum(ys**2)
-        tot, tot2 = csum[-1], csq[-1]
-        k = np.arange(1, n)
-        # valid split positions: leaves >= min_leaf and distinct x
-        valid = (k >= min_leaf) & (k <= n - min_leaf) & (xs[1:] != xs[:-1])
-        if not valid.any():
-            continue
-        lsum, lsq = csum[:-1], csq[:-1]
-        rsum, rsq = tot - lsum, tot2 - lsq
-        sse = (lsq - lsum**2 / k) + (rsq - rsum**2 / (n - k))
-        sse = np.where(valid, sse, np.inf)
-        kbest = int(np.argmin(sse))
-        gain = base - sse[kbest]
-        if np.isfinite(sse[kbest]) and gain > best[2]:
-            thr = 0.5 * (xs[kbest] + xs[kbest + 1])
-            if thr >= xs[kbest + 1]:
-                # the midpoint of two adjacent floats can round up to the
-                # upper one, and ``X <= thr`` would then leave the right
-                # child empty (a NaN leaf in the JAX package's copy): keep
-                # the k-left split that was scored
-                thr = xs[kbest]
-            best = (j, thr, gain)
-    return best
+    feat_idx = np.asarray(feat_idx)
+    cols = X[:, feat_idx]
+    order = np.argsort(cols, axis=0, kind="stable")
+    xs, ys = cols[order, np.arange(len(feat_idx))], y[order]
+    csum = np.cumsum(ys, axis=0)
+    csq = np.cumsum(ys**2, axis=0)
+    tot, tot2 = csum[-1], csq[-1]
+    k = np.arange(1, n)[:, None]
+    # valid split positions: leaves >= min_leaf and distinct x
+    valid = (k >= min_leaf) & (k <= n - min_leaf) & (xs[1:] != xs[:-1])
+    lsum, lsq = csum[:-1], csq[:-1]
+    rsum, rsq = tot - lsum, tot2 - lsq
+    sse = (lsq - lsum**2 / k) + (rsq - rsum**2 / (n - k))
+    sse = np.where(valid, sse, np.inf)
+    kbest = np.argmin(sse, axis=0)
+    smin = sse[kbest, np.arange(len(feat_idx))]
+    gain = base - smin
+    cand = np.isfinite(smin) & (gain > 0.0)
+    if not cand.any():
+        return (None, None, 0.0)  # feature, threshold, gain
+    c = int(np.argmax(np.where(cand, gain, -np.inf)))
+    kb = kbest[c]
+    thr = 0.5 * (xs[kb, c] + xs[kb + 1, c])
+    if thr >= xs[kb + 1, c]:
+        # the midpoint of two adjacent floats can round up to the upper
+        # one, and ``X <= thr`` would then leave the right child empty (a
+        # NaN leaf in the JAX package's copy): keep the k-left split that
+        # was scored
+        thr = xs[kb, c]
+    return (feat_idx[c], thr, gain[c])
 
 
 def _random_split(X, y, feat_idx, min_leaf, rng):
@@ -105,8 +112,13 @@ class CART(Model):
         self.random_splits = random_splits
 
     def _grow(self, X, y, depth, rng):
-        node = _Node(value=float(y.mean()))
-        if depth >= self.max_depth or len(y) < 2 * self.min_leaf or y.std() == 0:
+        mean = y.mean()
+        node = _Node(value=float(mean))
+        # the node's SSE; zero over len(y) exactly where y.std() is zero
+        # (numpy's variance sums the same squares in the same order)
+        base = ((y - mean) ** 2).sum()
+        if (depth >= self.max_depth or len(y) < 2 * self.min_leaf
+                or base / len(y) == 0):
             return node
         d = X.shape[1]
         if self.max_features is not None:
@@ -117,11 +129,10 @@ class CART(Model):
         if self.random_splits:
             j, thr, gain = _random_split(X, y, feat_idx, self.min_leaf, rng)
         else:
-            j, thr, gain = _best_split(X, y, feat_idx, self.min_leaf)
+            j, thr, gain = _best_split(X, y, feat_idx, self.min_leaf, base)
         # relative gain threshold: an absolute epsilon silently refuses to
         # split small-magnitude targets (e.g. energies ~1e-7 J), leaving a
         # constant predictor
-        base = ((y - y.mean()) ** 2).sum()
         if j is None or gain <= 1e-9 * max(base, 1e-300):
             return node
         mask = X[:, j] <= thr

@@ -3,8 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-Weights are random, drawn from ``--seed``.  Without ``--device`` it runs
-on the GPU and raises on a machine without one.  ``--approx`` serves the
+Weights are random, drawn from ``--seed``, and so are the stub front
+ends' inputs (``train.serve.frontend_inputs``): 16 encoder frames for
+seamless-m4t-medium, ``frontend_len`` patch embeddings before the prompt
+for qwen2-vl-72b.  Without ``--device`` it runs on the GPU and raises on
+a machine without one.  ``--approx`` serves the
 FFN projections (``ffn_in``/``ffn_out``) on one circuit of the library.
 
 The approximate-serving path can draw its policy from a stored Pareto
@@ -57,9 +60,14 @@ def serve_batch(
     model: Optional[Transformer] = None,
     impl: str = "kernel",
     timings: Optional[Dict[str, float]] = None,
+    embeds=None,
+    enc_embeds=None,
 ):
     """Greedy-decode ``gen`` tokens for a batch of prompts (random from
-    ``seed`` by default).  Returns (tokens (b, prompt+gen), tokens/s).
+    ``seed`` by default), after a vision front end's ``embeds`` and
+    against an encoder-decoder's ``enc_embeds`` (each drawn from ``seed``
+    where the config takes it and none is given).  Returns (tokens (b,
+    prompt+gen), tokens/s).
 
     ``model`` serves an already built model (its config must be
     ``cfg``); otherwise one is built on ``device`` from ``params`` or
@@ -79,7 +87,8 @@ def serve_batch(
                                 generator=g, dtype=torch.int64)
     prompts = torch.as_tensor(prompts)
     gen_ = Generator(model, impl=impl)
-    tokens, tps = gen_.generate(prompts, gen)
+    tokens, tps = gen_.generate(prompts, gen, embeds=embeds,
+                                enc_embeds=enc_embeds, seed=seed)
     if timings is not None:
         timings.update(gen_.timings)
     return tokens, tps

@@ -21,8 +21,8 @@ moments in the config's ``param_dtype`` and ``moment_dtype`` (bf16 for
 jamba).  ``--n-layers`` cuts the depth (a multiple of the block
 pattern; the widths stay published) where the training state exceeds
 one card: falcon-mamba-7b's 64 layers take 7.27 B x 16 B = 117 GB, 32
-fit an 80 GB card.  Encoder-decoder and front-end archs are not ported
-and raise.
+fit an 80 GB card.  The encoder-decoder and front-end archs serve but do
+not train yet: their ``forward_train`` raises.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""Attention layer: GQA self-attention with RoPE and a preallocated KV
-cache.  Prefill runs the flash-attention kernel over the prompt's own
-k/v; decode attends one token over the masked cache in float32, plain
-PyTorch, as the JAX package does.  Projections route through
+"""Attention layers: GQA self-attention (causal, or full in an encoder)
+with RoPE and a preallocated KV cache, and an encoder-decoder's cross
+attention with a fixed cache of the encoder's k/v.  Prefill runs the
+flash-attention kernel over the prompt's own k/v; self-attention decode
+attends one token over the masked cache in float32, plain PyTorch, as
+the JAX package does; cross attention runs the kernel (non-causal) in
+both, over the encoder's keys.  Projections route through
 ``approx_linear.linear`` so a DSE policy applies."""
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from .config import ModelConfig
 
 __all__ = [
     "Attention",
+    "CrossAttention",
     "attn_param_specs",
     "gqa_decode_attention",
+    "init_cross_cache",
     "init_kv_cache",
 ]
 
@@ -86,13 +91,15 @@ class Attention(ParamModule):
         pos: Optional[int] = None,         # decode position
         impl: str = "kernel",
         policy: Optional[ApproxPolicy] = None,
+        causal: bool = True,
     ) -> torch.Tensor:
-        """Prefill (``pos`` None): causal attention over the sequence
-        through the flash kernel; with a cache, this sequence's k/v are
-        written to its first positions.  Decode (``pos`` given, s == 1):
-        k/v written at ``pos`` and attention over the cache.  The cache is
-        updated in place.  ``policy``, where given, replaces the one the
-        layer was built with for this call."""
+        """Prefill (``pos`` None): attention over the sequence through
+        the flash kernel, causal unless ``causal`` is False (an encoder);
+        with a cache, this sequence's k/v are written to its first
+        positions.  Decode (``pos`` given, s == 1): k/v written at
+        ``pos`` and attention over the cache.  The cache is updated in
+        place.  ``policy``, where given, replaces the one the layer was
+        built with for this call."""
         cfg = self.cfg
         policy = self.policy if policy is None else policy
         s = x.shape[1]
@@ -118,7 +125,53 @@ class Attention(ParamModule):
         else:
             # prefill attends over the locally computed k/v, as the JAX
             # package does, not over the bf16 cache copy
-            out = attn_op(q, k, v, causal=True, impl=impl)
+            out = attn_op(q, k, v, causal=causal, impl=impl)
+        return linear(_merge_heads(out), self.wo, "attn_out", policy)
+
+
+class CrossAttention(ParamModule):
+    """An encoder-decoder layer's cross attention: the decoder stream's
+    queries (RMS-normed, no RoPE) over keys and values projected from
+    the encoder's output (no norm, no RoPE), non-causal.  Its weights are
+    declared as self-attention's."""
+
+    def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
+                 device, proj_dtype: Optional[torch.dtype] = None):
+        specs = attn_param_specs(cfg)
+        super().__init__(specs, param_dtypes(specs, _CLASSES, policy,
+                                             proj_dtype), device)
+        self.cfg = cfg
+        self.policy = policy
+
+    def forward(
+        self,
+        x: torch.Tensor,                   # (b, s, d)
+        enc_out: Optional[torch.Tensor],   # (b, s_enc, d)
+        *,
+        cache: Optional[Dict[str, torch.Tensor]] = None,
+        pos: Optional[int] = None,         # decode position
+        impl: str = "kernel",
+        policy: Optional[ApproxPolicy] = None,
+    ) -> torch.Tensor:
+        """Prefill (``pos`` None): k/v projected from ``enc_out`` and
+        attended; with a cache, their bf16 copies written to it.  Decode
+        (``pos`` given): attention over the cached k/v (``enc_out`` is
+        not read), as the JAX package's decode step does."""
+        cfg = self.cfg
+        policy = self.policy if policy is None else policy
+        h = rms_norm(x, self.norm, cfg.rms_eps)
+        q = _split_heads(linear(h, self.wq, "qkv", policy), cfg.n_heads)
+        if pos is not None:
+            k, v = cache["k"], cache["v"]
+        else:
+            k = _split_heads(linear(enc_out, self.wk, "qkv", policy),
+                             cfg.n_kv_heads)
+            v = _split_heads(linear(enc_out, self.wv, "qkv", policy),
+                             cfg.n_kv_heads)
+            if cache is not None:
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+        out = attn_op(q, k, v, causal=False, impl=impl)
         return linear(_merge_heads(out), self.wo, "attn_out", policy)
 
 
@@ -128,3 +181,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """One cross-attention layer's cache of the encoder's k/v: bf16 zeros
+    of (b, kvh, enc_len, hd), filled by prefill."""
+    return init_kv_cache(cfg, batch, enc_len, device)

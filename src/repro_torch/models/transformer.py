@@ -31,6 +31,15 @@ the Switch load-balance loss summed over the layers of the last
 without MoE layers), where the training step reads it, as the JAX
 package's forward returns it.  It is computed from the kept routings
 when read, so serving, which never reads it, does not pay for it.
+
+An encoder-decoder config (``is_encoder_decoder``) adds an ``Encoder``
+(``n_enc_layers`` of non-causal self-attention and a dense MLP, then its
+own final norm) over ``enc_embeds``, and each decoder layer a
+``CrossAttention`` over the encoder's output, between its mixer and its
+MLP; a front-end config (``frontend="vision"``) takes ``embeds``, placed
+before the token embeddings, as the JAX package's ``forward`` does.
+Both front ends are stubs there: the caller gives the embeddings.
+Training these two families is not ported: ``forward_train`` raises.
 """
 
 from __future__ import annotations
@@ -45,29 +54,28 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .approx_linear import ApproxPolicy
-from .attention import Attention, init_kv_cache
+from .attention import (Attention, CrossAttention, init_cross_cache,
+                        init_kv_cache)
 from .common import ParamSpec, init_params, make_rope, rms_norm
 from .config import LayerKind, ModelConfig
 from .moe import DenseMLP, MoE, Routing, moe_aux
 from .ssm import Mamba, init_mamba_cache
 
-__all__ = ["Layer", "Transformer", "init_caches"]
+__all__ = ["Encoder", "Layer", "Transformer", "init_caches"]
 
 Caches = List[Dict[str, torch.Tensor]]
 
 
 class Layer(nn.Module):
-    """One layer of ``block_pattern``: a mixer (attention or Mamba) and
-    an optional dense MLP or MoE, each a residual branch.  ``forward``
+    """One layer of ``block_pattern``: a mixer (attention or Mamba), an
+    encoder-decoder's cross attention where the kind has one, and an
+    optional dense MLP or MoE, each a residual branch.  ``forward``
     returns ``(x, routing)``: the MoE's routing, or None."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind,
                  policy: Optional[ApproxPolicy], device,
                  proj_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if kind.cross_attn:
-            raise NotImplementedError(
-                "encoder-decoder cross attention is not ported yet")
         self.kind = kind
         if kind.mixer == "attn":
             self.attn = Attention(cfg, policy, device, proj_dtype)
@@ -75,6 +83,8 @@ class Layer(nn.Module):
             self.mamba = Mamba(cfg, policy, device, proj_dtype)
         else:
             raise ValueError(f"unknown mixer {kind.mixer!r}")
+        if kind.cross_attn:
+            self.cross = CrossAttention(cfg, policy, device, proj_dtype)
         self.mlp = (DenseMLP(cfg, policy, device, proj_dtype)
                     if kind.mlp == "dense" else None)
         if kind.mlp == "moe":
@@ -83,13 +93,18 @@ class Layer(nn.Module):
             raise ValueError(f"unknown mlp {kind.mlp!r}")
 
     def forward(self, x, inv_freq, *, cache=None, pos=None, impl="kernel",
-                policy=None):
+                policy=None, enc_out=None):
         if self.kind.mixer == "attn":
             x = x + self.attn(x, inv_freq, cache=cache, pos=pos, impl=impl,
                               policy=policy)
         else:
             x = x + self.mamba(x, cache=cache, decode=pos is not None,
                                impl=impl, policy=policy)
+        if self.kind.cross_attn:
+            x = x + self.cross(x, enc_out,
+                               cache=cache["cross"] if cache is not None
+                               else None,
+                               pos=pos, impl=impl, policy=policy)
         routing = None
         if self.mlp is not None:
             x = x + self.mlp(x, policy=policy)
@@ -99,8 +114,53 @@ class Layer(nn.Module):
         return x, routing
 
 
+class EncoderLayer(nn.Module):
+    """One encoder layer: non-causal self-attention (RoPE at positions
+    0..s-1), then a dense MLP, each a residual branch."""
+
+    def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
+                 device, proj_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.attn = Attention(cfg, policy, device, proj_dtype)
+        self.mlp = DenseMLP(cfg, policy, device, proj_dtype)
+
+    def forward(self, x, inv_freq, *, impl="kernel", policy=None):
+        x = x + self.attn(x, inv_freq, impl=impl, policy=policy,
+                          causal=False)
+        return x + self.mlp(x, policy=policy)
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder, as the JAX package's ``encode``:
+    ``n_enc_layers`` of ``EncoderLayer`` over the source embeddings (cast
+    to bf16), then its own final RMS norm.  Its RoPE rotates the whole
+    head dim, whatever the decoder's ``rope_style``."""
+
+    def __init__(self, cfg: ModelConfig, policy: Optional[ApproxPolicy],
+                 device, proj_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, policy, device, proj_dtype)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = nn.Parameter(
+            torch.empty((cfg.d_model,), dtype=torch.float32, device=device),
+            requires_grad=False)
+        inv = make_rope(cfg.resolved_head_dim, cfg.rope_theta)
+        self.register_buffer("inv_freq", torch.from_numpy(inv).to(device),
+                             persistent=False)
+
+    def forward(self, enc_embeds: torch.Tensor, *, impl: str = "kernel",
+                policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
+        x = enc_embeds.to(torch.bfloat16)
+        for layer in self.layers:
+            x = layer(x, self.inv_freq, impl=impl, policy=policy)
+        return rms_norm(x, self.final_norm, self.cfg.rms_eps)
+
+
 class Transformer(nn.Module):
-    """A decoder-only LM of a ``ModelConfig``.  Parameters are allocated
+    """An LM of a ``ModelConfig``: a decoder stack, with an encoder where
+    the config is an encoder-decoder's.  Parameters are allocated
     uninitialised on ``device``; seed them with ``init_weights(seed)`` or
     load a ``state_dict`` (``convert.lm_params_from_numpy``).  Projection
     weights are stored as ``policy`` needs them, or all in ``proj_dtype``
@@ -113,10 +173,6 @@ class Transformer(nn.Module):
                  trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.is_encoder_decoder or cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and front-end families are "
-                "not ported yet")
         self.cfg = cfg
         self.policy = policy
         d, v = cfg.d_model, cfg.padded_vocab
@@ -134,6 +190,8 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=torch.bfloat16, device=dev),
                 requires_grad=False)
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, policy, dev, proj_dtype)
         self.trainable = trainable
         if trainable:
             # master weights: re-declared (still uninitialised) in the
@@ -159,10 +217,15 @@ class Transformer(nn.Module):
         cfg = self.cfg
         d, v = cfg.d_model, cfg.padded_vocab
         specs: Dict[str, ParamSpec] = {"embed": ParamSpec((v, d))}
-        for j, layer in enumerate(self.layers):
-            for mod_name, mod in layer.named_children():
-                for name, spec in mod.specs.items():
-                    specs[f"layers.{j}.{mod_name}.{name}"] = spec
+        stacks = [("layers", self.layers)]
+        if cfg.is_encoder_decoder:
+            stacks.append(("encoder.layers", self.encoder.layers))
+            specs["encoder.final_norm"] = ParamSpec((d,), init="zeros")
+        for prefix, layers in stacks:
+            for j, layer in enumerate(layers):
+                for mod_name, mod in layer.named_children():
+                    for name, spec in mod.specs.items():
+                        specs[f"{prefix}.{j}.{mod_name}.{name}"] = spec
         specs["final_norm"] = ParamSpec((d,), init="zeros")
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((d, v))
@@ -192,23 +255,50 @@ class Transformer(nn.Module):
 
     # -- forward pieces ------------------------------------------------------
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        # F.embedding, not indexing: its backward on the card sums a
-        # token's rows in a fixed order (indexing's scatters with float
-        # atomics), so a training step gives the same bits every run
-        x = F.embedding(tokens.long(), self.embed).to(torch.bfloat16)
+    def embed_tokens(self, tokens: Optional[torch.Tensor],
+                     embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The decoder's input: front-end ``embeds`` (b, f, d) cast to
+        bf16, where given, then the tokens' embedding rows; gemma scales
+        the whole by sqrt(d), as the JAX package's forward does."""
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(device=self.device, dtype=torch.bfloat16))
+        if tokens is not None:
+            # F.embedding, not indexing: its backward on the card sums a
+            # token's rows in a fixed order (indexing's scatters with
+            # float atomics), so a training step gives the same bits
+            # every run
+            parts.append(F.embedding(tokens.long(), self.embed).to(
+                torch.bfloat16))
+        if not parts:
+            raise ValueError("need tokens, embeds or both")
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if self.cfg.name.startswith("gemma"):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
+    def encode(self, enc_embeds: Optional[torch.Tensor], *,
+               impl: str = "kernel",
+               policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
+        """The encoder's output (b, s_enc, d) bf16 of an encoder-decoder
+        config's source embeddings."""
+        if not self.cfg.is_encoder_decoder:
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: pass "
+                             "enc_embeds")
+        return self.encoder(enc_embeds.to(self.device), impl=impl,
+                            policy=policy)
+
     def run_layers(self, x: torch.Tensor, *, caches: Optional[Caches] = None,
                    pos: Optional[int] = None, impl: str = "kernel",
-                   policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
+                   policy: Optional[ApproxPolicy] = None,
+                   enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         routings = []
         for j, layer in enumerate(self.layers):
             x, r = layer(x, self.inv_freq,
                          cache=caches[j] if caches is not None else None,
-                         pos=pos, impl=impl, policy=policy)
+                         pos=pos, impl=impl, policy=policy, enc_out=enc_out)
             if r is not None:
                 routings.append(r)
         self._routings = routings
@@ -220,16 +310,23 @@ class Transformer(nn.Module):
         return x.to(torch.bfloat16) @ head.to(torch.bfloat16)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *,
+    def forward(self, tokens: Optional[torch.Tensor], *,
+                embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None,
                 caches: Optional[Caches] = None,
                 impl: str = "kernel",
                 policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
-        """Teacher-forcing / prefill forward: (b, s, padded_vocab) bf16
-        logits.  With ``caches``, they are filled with this sequence.
-        ``policy``, where given, replaces the built one for this call
-        (``ApproxPolicy.exact()`` runs every projection exact)."""
-        x = self.run_layers(self.embed_tokens(tokens), caches=caches,
-                            impl=impl, policy=policy)
+        """Teacher-forcing / prefill forward: (b, f + s, padded_vocab)
+        bf16 logits of the front-end ``embeds`` (f of them, where given)
+        and the tokens.  An encoder-decoder config encodes ``enc_embeds``
+        first.  With ``caches``, they are filled with this sequence (and
+        the encoder's k/v).  ``policy``, where given, replaces the built
+        one for this call (``ApproxPolicy.exact()`` runs every projection
+        exact)."""
+        enc_out = (self.encode(enc_embeds, impl=impl, policy=policy)
+                   if self.cfg.is_encoder_decoder else None)
+        x = self.run_layers(self.embed_tokens(tokens, embeds), caches=caches,
+                            impl=impl, policy=policy, enc_out=enc_out)
         return self.logits(x)
 
     def forward_train(self, tokens: torch.Tensor, *, impl: str = "kernel",
@@ -238,7 +335,13 @@ class Transformer(nn.Module):
         """Differentiable teacher-forcing forward: ((b, s, padded_vocab)
         bf16 logits, the load-balance loss summed over the MoE layers,
         float32, 0 without them).  Each layer keeps only its input for
-        the backward and runs again there."""
+        the backward and runs again there.  The encoder-decoder and
+        front-end families do not train here yet."""
+        if self.cfg.is_encoder_decoder or self.cfg.frontend != "none":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the encoder-decoder and "
+                "front-end families (embeds, enc_embeds, the text-only loss) "
+                "is not ported yet")
         x = self.embed_tokens(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
@@ -260,24 +363,32 @@ class Transformer(nn.Module):
                     pos: int, *,
                     policy: Optional[ApproxPolicy] = None) -> torch.Tensor:
         """One autoregressive step (tokens (b, 1)) at write position
-        ``pos`` against preallocated caches: (b, 1, V) logits.
+        ``pos`` against preallocated caches: (b, 1, V) logits.  Cross
+        attention reads the encoder's k/v that prefill cached.
         ``policy``, where given, replaces the built one for this step."""
         x = self.run_layers(self.embed_tokens(tokens), caches=caches,
                             pos=int(pos), policy=policy)
         return self.logits(x)
 
-    def init_caches(self, batch: int, max_len: int) -> Caches:
-        return init_caches(self.cfg, batch, max_len, self.device)
+    def init_caches(self, batch: int, max_len: int,
+                    enc_len: int = 0) -> Caches:
+        return init_caches(self.cfg, batch, max_len, self.device, enc_len)
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> Caches:
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                enc_len: int = 0) -> Caches:
     """One cache dict per layer: attention layers get a bf16 KV cache of
-    ``max_len`` positions, Mamba layers a float32 (conv, ssm) state."""
+    ``max_len`` positions, Mamba layers a float32 (conv, ssm) state, and
+    a layer with cross attention also ``"cross"``, a bf16 k/v of the
+    encoder's ``enc_len`` positions (the JAX package's ``cache_specs``)."""
     out: Caches = []
     for _ in range(cfg.n_superblocks):
         for kind in cfg.block_pattern:
-            out.append(init_kv_cache(cfg, batch, max_len, device)
-                       if kind.mixer == "attn"
-                       else init_mamba_cache(cfg, batch, device))
+            c = (init_kv_cache(cfg, batch, max_len, device)
+                 if kind.mixer == "attn"
+                 else init_mamba_cache(cfg, batch, device))
+            if kind.cross_attn:
+                c["cross"] = init_cross_cache(cfg, batch, enc_len, device)
+            out.append(c)
     return out
 

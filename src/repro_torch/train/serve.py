@@ -13,21 +13,34 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..models import ApproxPolicy
+from ..models.config import ModelConfig
 from ..models.transformer import Caches, Transformer
 
-__all__ = ["Generator", "make_prefill_step", "make_decode_step"]
+__all__ = ["Generator", "make_prefill_step", "make_decode_step",
+           "frontend_inputs", "ENC_LEN"]
 
 
 def make_prefill_step(model: Transformer, *, impl: str = "kernel",
                       policy: Optional[ApproxPolicy] = None) -> Callable:
-    """``prefill(tokens (b, L), caches) -> (last_logits (b, 1, V),
-    caches)``; ``impl`` picks the attention / scan route ("kernel" or
-    "plain"); ``policy``, where given, replaces the model's own."""
+    """``prefill(tokens (b, L), caches, *, embeds=None, enc_embeds=None)
+    -> (last_logits (b, 1, V), caches)``, as the JAX package's prefill
+    takes its batch's ``tokens``, ``embeds`` and ``enc_embeds``: front-end
+    ``embeds`` (b, f, d) go before the tokens; an encoder-decoder config
+    encodes ``enc_embeds`` (b, s_enc, d) and its cross layers cache the
+    encoder's k/v, which decode reads (so, unlike the JAX package's, it
+    returns no ``enc_out``).  ``impl`` picks the attention / scan route
+    ("kernel" or "plain"); ``policy``, where given, replaces the model's
+    own."""
 
     @torch.no_grad()
-    def prefill(tokens: torch.Tensor, caches: Caches):
-        x = model.run_layers(model.embed_tokens(tokens), caches=caches,
-                             impl=impl, policy=policy)
+    def prefill(tokens: torch.Tensor, caches: Caches, *,
+                embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None):
+        enc_out = (model.encode(enc_embeds, impl=impl, policy=policy)
+                   if model.cfg.is_encoder_decoder else None)
+        x = model.run_layers(model.embed_tokens(tokens, embeds),
+                             caches=caches, impl=impl, policy=policy,
+                             enc_out=enc_out)
         return model.logits(x[:, -1:, :]), caches
 
     return prefill
@@ -52,13 +65,57 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# encoder frames an encoder-decoder serves against when the caller gives
+# none (the JAX package's ``Generator``)
+ENC_LEN = 16
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, *, seed: int = 0,
+                    embeds: Optional[torch.Tensor] = None,
+                    enc_embeds: Optional[torch.Tensor] = None) -> Dict:
+    """The stub front ends' inputs of one batch, as the JAX package's
+    ``Generator`` synthesizes them: ``enc_embeds`` (b, 16, d) for an
+    encoder-decoder, ``embeds`` (b, frontend_len, d) for a vision front
+    end, each drawn float32 x 0.1 from a ``torch.Generator`` seeded with
+    ``seed`` where the caller gives none (torch's RNG: not the JAX
+    package's numbers).  Given ones are checked and kept."""
+    g = torch.Generator().manual_seed(int(seed))
+    out: Dict[str, Optional[torch.Tensor]] = {"embeds": None,
+                                              "enc_embeds": None}
+    d = cfg.d_model
+    if cfg.is_encoder_decoder:
+        if enc_embeds is None:
+            enc_embeds = torch.randn((batch, ENC_LEN, d), generator=g) * 0.1
+        enc_embeds = torch.as_tensor(enc_embeds)
+        if enc_embeds.dim() != 3 or enc_embeds.shape[0] != batch \
+                or enc_embeds.shape[2] != d:
+            raise ValueError(f"enc_embeds must be ({batch}, s_enc, {d}), got "
+                             f"{tuple(enc_embeds.shape)}")
+        out["enc_embeds"] = enc_embeds
+    elif enc_embeds is not None:
+        raise ValueError(f"{cfg.name} has no encoder: enc_embeds given")
+    if cfg.frontend == "vision":
+        if embeds is None:
+            embeds = torch.randn((batch, cfg.frontend_len, d),
+                                 generator=g) * 0.1
+        embeds = torch.as_tensor(embeds)
+        if tuple(embeds.shape) != (batch, cfg.frontend_len, d):
+            raise ValueError(f"embeds must be ({batch}, {cfg.frontend_len}, "
+                             f"{d}), got {tuple(embeds.shape)}")
+        out["embeds"] = embeds
+    elif embeds is not None:
+        raise ValueError(f"{cfg.name} has no vision front end: embeds given")
+    return out
+
+
 class Generator:
     """One model's prefill + decode steps, reused across prompt batches.
-    Caches are allocated per ``generate`` call, sized (batch, prompt_len +
-    gen).  ``policy``, where given, replaces the model's own in every
-    step (one float32 model serving many policies, ``accel.lm``).
-    ``timings`` holds the last call's ``prefill_s`` and ``decode_s``
-    (host clock around work that ends in a synchronise on the card)."""
+    Caches are allocated per ``generate`` call, sized (batch, frontend +
+    prompt_len + gen), and the encoder's length for an encoder-decoder.
+    ``policy``, where given, replaces the model's own in every step (one
+    float32 model serving many policies, ``accel.lm``).  ``timings``
+    holds the last call's ``prefill_s`` and ``decode_s`` (host clock
+    around work that ends in a synchronise on the card)."""
 
     def __init__(self, model: Transformer, *, impl: str = "kernel",
                  policy: Optional[ApproxPolicy] = None):
@@ -68,26 +125,41 @@ class Generator:
         self._decode = make_decode_step(model, policy=policy)
         self.timings: Dict[str, float] = {}
 
-    def generate(self, prompts: torch.Tensor,
-                 gen: int) -> Tuple[torch.Tensor, float]:
-        """Greedy-decode ``gen`` tokens after ``prompts`` (b, L).
-        Returns (tokens (b, L + gen) int32, decode tokens/s)."""
+    def generate(self, prompts: torch.Tensor, gen: int, *,
+                 embeds: Optional[torch.Tensor] = None,
+                 enc_embeds: Optional[torch.Tensor] = None,
+                 seed: int = 0) -> Tuple[torch.Tensor, float]:
+        """Greedy-decode ``gen`` tokens after ``prompts`` (b, L), and
+        after the front end's ``embeds`` / against ``enc_embeds`` where
+        the config has one (``frontend_inputs``: drawn from ``seed``
+        where not given).  Returns (tokens (b, L + gen) int32, decode
+        tokens/s)."""
         if gen < 1:
             raise ValueError(f"gen must be >= 1, got {gen}")
+        cfg = self.model.cfg
         dev = self.model.device
         prompts = prompts.to(device=dev, dtype=torch.int32)
         batch, prompt_len = prompts.shape
-        caches = self.model.init_caches(batch, prompt_len + int(gen))
+        extra = frontend_inputs(cfg, batch, seed=seed, embeds=embeds,
+                                enc_embeds=enc_embeds)
+        extra = {k: None if v is None else v.to(dev)
+                 for k, v in extra.items()}
+        vis = cfg.frontend_len if cfg.frontend == "vision" else 0
+        enc_len = (extra["enc_embeds"].shape[1]
+                   if extra["enc_embeds"] is not None else 0)
+        caches = self.model.init_caches(batch, prompt_len + int(gen) + vis,
+                                        enc_len)
 
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = self._prefill(prompts, caches)
+        logits, caches = self._prefill(prompts, caches, **extra)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         _sync(dev)
         t1 = time.perf_counter()
         toks = [prompts, nxt]
+        pos0 = prompt_len + vis
         for i in range(int(gen) - 1):
-            nxt, logits, caches = self._decode(caches, nxt, prompt_len + i)
+            nxt, logits, caches = self._decode(caches, nxt, pos0 + i)
             toks.append(nxt)
         _sync(dev)
         t2 = time.perf_counter()

@@ -65,7 +65,8 @@ def pair(request):
                                                    device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["seamless-m4t-medium",
+                                          "qwen2-vl-72b"])
 @pytest.mark.parametrize("cut", ["full", "reduced"])
 def test_config_equals_reference_field_for_field(arch, cut):
     rcfg, cfg = ref_get_config(arch), get_config(arch)

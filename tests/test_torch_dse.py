@@ -122,7 +122,7 @@ labels = default_labeler(acc, lib, n_qor_samples=1, synth_cache=cache,
 assert labels["qor"][0] == 100.0 and cache.stats()["compiles"] == 1
 cache.close()
 for arch in ("falcon-mamba-7b", "granite-8b", "granite-moe-3b-a800m",
-             "jamba-1.5-large-398b"):
+             "jamba-1.5-large-398b", "seamless-m4t-medium", "qwen2-vl-72b"):
     tokens, _ = serve_batch(reduced(get_config(arch)), batch=2, prompt_len=8,
                             gen=3, device="cpu")
     assert tuple(tokens.shape) == (2, 11)
@@ -187,7 +187,9 @@ def test_static_scan_finds_no_reference_imports():
                for p in files[:-1]}
     assert {"data/pipeline.py", "optim/adamw.py", "optim/compress.py",
             "train/step.py", "checkpoint/ckpt.py",
-            "checkpoint/fault_tolerance.py", "launch/train.py"} <= scanned
+            "checkpoint/fault_tolerance.py", "launch/train.py",
+            "configs/seamless_m4t_medium.py",
+            "configs/qwen2_vl_72b.py"} <= scanned
     hits = []
     for p in files:
         for m in _FORBIDDEN.finditer(p.read_text()):

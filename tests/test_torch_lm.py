@@ -165,8 +165,10 @@ def test_registry_lists_only_ported_archs():
         ref_get_config("granite")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("granite")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("seamless-m4t-medium")
+    # the encoder-decoder and vision archs are ported too: the registry
+    # is the JAX package's
+    assert get_config("seamless-m4t-medium").is_encoder_decoder
+    assert get_config("qwen2").name == "qwen2-vl-72b"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

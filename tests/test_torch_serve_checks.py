@@ -93,3 +93,68 @@ def test_prefix_model_of_a_dense_arch_keeps_its_config():
         if not k.startswith("layers.") or int(k.split(".")[1]) < 1},
         device="cpu")
     assert torch.equal(part(tokens), want(tokens))
+
+
+def test_prefix_model_of_an_encoder_decoder_keeps_its_encoder():
+    """The check model of seamless-m4t-medium: the first decoder layers
+    (each with its cross attention) beside the whole encoder, the same
+    parameters; its forward is that of a model built at that depth."""
+    model = _model("seamless-m4t-medium", n_layers=3)
+    part = chip_smoke._prefix_model(model, 1)
+    assert part.cfg.n_layers == 1 and len(part.layers) == 1
+    assert part.encoder is model.encoder
+    assert len(part.encoder.layers) == model.cfg.n_enc_layers
+    assert hasattr(part.layers[0], "cross")
+    tokens = _tokens(model.cfg)
+    enc = torch.randn((B, 16, model.cfg.d_model),
+                      generator=torch.Generator().manual_seed(1)) * 0.1
+    want = build_model(part.cfg, params={
+        k: v for k, v in model.state_dict().items()
+        if not k.startswith("layers.") or int(k.split(".")[1]) < 1},
+        device="cpu")
+    assert torch.equal(part(tokens, enc_embeds=enc),
+                       want(tokens, enc_embeds=enc))
+
+
+@pytest.mark.parametrize("arch,prefill,request_", [
+    # 12 encoder + 12 self + 12 cross in prefill, 12 cross a decode step
+    ("seamless-m4t-medium", 36, 36 + 12 * 31),
+    ("qwen2-vl-72b", 80, 80),
+    ("granite-8b", 36, 36),
+])
+def test_kernel_calls_of_a_served_request(arch, prefill, request_):
+    """The serve phases' launch gate at the published depth: the flash
+    forward once a layer that runs it in prefill, and once a cross
+    attention layer in each of the 31 decode steps of a 32-token
+    request."""
+    cfg = get_config(arch)
+    assert chip_smoke._kernel_calls(cfg)["flash_attention_sm90"] == prefill
+    assert chip_smoke._kernel_calls(
+        cfg, steps=chip_smoke.SERVE["gen"] - 1)["flash_attention_sm90"] \
+        == request_
+    mamba = get_config("falcon-mamba-7b")
+    assert chip_smoke._kernel_calls(mamba) == {"flash_attention_sm90": 0,
+                                               "selective_scan": 64}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_form_honours_causal(causal):
+    """The JAX model code's form of attention that the serve phases
+    measure their spread with: masked only where causal (the encoder and
+    cross attention call it non-causal, over fewer keys than queries);
+    within a bf16 rounding of the plain version either way."""
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    g = torch.Generator().manual_seed(2)
+    sk = 24 if causal else 5
+    q = torch.randn((2, 4, 24, 16), generator=g).to(torch.bfloat16)
+    k, v = (torch.randn((2, 2, sk, 16), generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    got = chip_smoke._chunked_form_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-2)
+    if not causal:
+        # the first query sees every key, not only the first
+        first = attention_ref(q[:, :, :1], k[:, :, :1], v[:, :, :1])
+        assert not torch.allclose(got[:, :, :1].float(), first.float())

@@ -397,15 +397,19 @@ def test_unknown_backend_raises():
 
 def test_lm_accelerator_raises():
     """``lm:<arch>`` resolves to the port's LMAccelerator (reduced, its
-    model on the factory's device); an arch the port does not build
-    still raises ``ValueError``, the factory's contract."""
+    model on the factory's device), the encoder-decoder arch's too; an
+    unknown arch raises ``ValueError``, the factory's contract."""
     acc = make_accelerator("lm:granite-8b", device="cpu")
     assert isinstance(acc, LMAccelerator)
     assert acc.name == "lm:granite-8b" and acc.cfg.n_layers == 2
     assert acc.device.type == "cpu"
     CampaignSpec(accel="lm:granite-8b", **SMALL).validate()
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_accelerator("lm:seamless-m4t-medium")
+    # the encoder-decoder arch builds on its reduced config (2 + 2
+    # layers), its model on the factory's device
+    encdec = make_accelerator("lm:seamless-m4t-medium", device="cpu")
+    assert isinstance(encdec, LMAccelerator)
+    assert encdec.cfg.is_encoder_decoder and encdec.cfg.n_enc_layers == 2
+    assert encdec.cfg.n_layers == 2 and encdec.device.type == "cpu"
     moe = make_accelerator("lm:granite-moe-3b-a800m", device="cpu")
     assert {"expert_in", "expert_out"} <= {s.name for s in moe.slots}
     with pytest.raises(ValueError, match="unknown accelerator"):
