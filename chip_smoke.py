@@ -60,8 +60,9 @@ Phases, one JSON object per line on standard output:
 4. ``labels``  — one line per accelerator: ``default_labeler(acc, lib,
    n_qor_samples=4, device="cuda")`` on 1000 numpy-seeded genomes of
    ``gaussian3x3`` (then a second batch of 1000), ``mcm1``…``mcm4``,
-   ``hevc_dct4x4`` (and a second batch), ``smoothed_dct`` (and a second
-   batch), ``smoothed_dct/stage0`` and ``/stage1``, each through a fresh
+   ``hevc_dct4x4``, ``smoothed_dct`` (one batch each since their
+   lines' ``reduced``, ``LABELS_REDUCED``), ``smoothed_dct/stage0`` and
+   ``/stage1``, each through a fresh
    ``SynthCache`` (structural tier on, its ``stats()`` printed), then
    one ``gaussian3x3`` batch with the structural tier off.  ``qor`` and
    ``energy`` must be bit-identical to ``device="cpu"`` on a 64-genome
@@ -179,7 +180,7 @@ Phases, one JSON object per line on standard output:
    decode steps of the whole model give device time, the kernel's share
    and the decode's launches and idle share.  The ``_approx`` phase
    serves granite-8b with ``ffn_in``/``ffn_out`` on ``mul8s_mitchell``
-   at rank 3, at ``SERVE_APPROX_DEPTH`` (18) of its 36 layers.
+   at rank 3, at ``SERVE_APPROX_DEPTH`` (9) of its 36 layers.
 11. ``train`` — training through ``launch/train.py``: ``train_gemma-2b``
    runs ``train_loop`` on gemma-2b at full size (18 layers, d 2048, MQA,
    head dim 256, tied 256k vocab; float32 master weights, AdamW, weights
@@ -196,9 +197,9 @@ Phases, one JSON object per line on standard output:
    ``train_falcon-mamba-7b``: the same ``train_loop`` run on
    falcon-mamba-7b at full width (d 4096, d_inner 8192, 16 states, 65k
    vocab, untied) and ``TRAIN_FALCON_LAYERS`` of its 64 layers, float32
-   masters; gates: the loss falls, nothing NaN, the scan forward (with
-   chunk states) launched twice and ``selective_scan_bwd`` once a Mamba
-   layer a micro-batch pass.  ``train_check_mamba``: ``train_check`` on
+   masters, 6 steps (``TRAIN_FALCON``); gates: the loss falls, nothing
+   NaN, the scan forward (with chunk states) launched twice and
+   ``selective_scan_bwd`` once a Mamba layer a micro-batch pass.  ``train_check_mamba``: ``train_check`` on
    falcon's first 2 layers, the scan kernels against the plain scan,
    the spread from the JAX model code's chunked scan, and each layer's
    backward held to the plain one on that layer's own inputs and output
@@ -214,7 +215,25 @@ Phases, one JSON object per line on standard output:
    each way per layer.  ``train_resilient``:
    ``run_resilient`` on a small gemma with a checkpoint every 2 steps
    and a failure injected at step 3: one restart, losses and final
-   parameters bit-equal to a clean run's.
+   parameters bit-equal to a clean run's.  ``train_seamless-m4t-medium``:
+   ``train_loop`` on seamless at full size (12 + 12 layers, d 1024, 256k
+   vocab), each batch with 1024 encoder frames (``step_embeds``), at
+   ``TRAIN`` but lr 3e-4 (``TRAIN_SEAMLESS``); the encoder's
+   self-attention and cross attention (sq 1024 over sk 1024) train
+   through both kernels non-causally: 36 flash calls a pass.
+   ``train_check_encdec``: ``train_check`` on its first 2 encoder and 2
+   decoder layers.  ``train_qwen2-vl-72b``: qwen at full width (d 8192,
+   GQA 64/8, 152k vocab, untied) on ``TRAIN_QWEN_LAYERS`` of its 80
+   layers, 256 patch embeddings before 1024 tokens, the loss on the
+   text, 6 steps (``TRAIN_QWEN``).  ``train_compress``: ``--compress`` (``ef_quantize``) on
+   gemma-2b's first 2 layers, 3 steps.  ``cluster``: ``python -m
+   repro_torch.launch.cluster`` as a subprocess, one NCCL process on
+   gemma-2b at full size, 6 steps (``CLUSTER``) with ``--compress``
+   (error-feedback gradients through ``compressed_psum``, the
+   micro-batch count ``n_microbatches``'s); the loss falls and the
+   child's launch counts per layer and pass; then ``compressed_psum`` on
+   a one-rank NCCL group of this process equals its plain formula bit
+   for bit.
 12. ``service`` — the campaign service's HTTP front end
    (``service/api.py``) on a free local port, its process pool, fleet
    and serving tier on the card.  (a) ``process``: a ``gaussian3x3``
@@ -276,6 +295,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -355,8 +376,10 @@ SERVE_DEPTH = {"deepseek-67b": 44, "phi3.5-moe-42b-a6.6b": 26,
                "qwen2-vl-72b": 36}
 # the depth of granite-8b served under the approximate FFN policy (the
 # approximate linear route is the slowest path of the serve phases; full
-# depth, 36, until the two encoder-decoder and vision phases joined)
-SERVE_APPROX_DEPTH = 18
+# depth, 36, until the two encoder-decoder and vision phases joined, 18
+# until the training lines of the encoder-decoder and vision families,
+# compression and the cluster CLI did)
+SERVE_APPROX_DEPTH = 9
 # the serve phases' checks (kernel against plain prefill, each layer's
 # kernel call, the JAX form's spread, the plain route's greedy tokens) run
 # on the first SERVE_CHECK_LAYERS layers of the same model
@@ -428,6 +451,13 @@ FLASH_BWD_CASES = [
      "gemma-2b training micro-batch (4 x 1024), MQA, head dim 256"),
     (2, 24, 8, 1024, 64, True, "bfloat16",
      "granite-moe-3b training micro-batch (2 x 1024), GQA 24/8"),
+    # cross attention trains non-causally at sq != sk (s = (sq, sk))
+    (4, 16, 16, (1024, 1024), 64, False, "bfloat16",
+     "seamless-m4t-medium training cross attention, 1024 frames"),
+    (4, 16, 16, (1024, 16), 64, False, "bfloat16",
+     "cross attention over serving's 16 encoder frames"),
+    (4, 16, 16, (1024, 4096), 64, False, "bfloat16",
+     "cross attention over ENC_CONTEXT = 4096 encoder frames"),
 ]
 # the backward row launched twice for the same bits (no atomics:
 # train_resilient's bit-equal resume rests on it)
@@ -507,6 +537,15 @@ MAIN_PATH = {
     "train_hybrid": ("flash_attention_sm90", "flash_attention_bwd_sm90",
                      "selective_scan", "selective_scan_bwd"),
     "train_resilient": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    # the encoder's self-attention and cross attention non-causal, at
+    # sq = 1024 decoder positions over sk = 1024 frames
+    "train_seamless-m4t-medium": ("flash_attention_sm90",
+                                  "flash_attention_bwd_sm90"),
+    "train_qwen2-vl-72b": ("flash_attention_sm90",
+                           "flash_attention_bwd_sm90"),
+    "train_compress": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
+    # the cluster CLI's child process, its own counts
+    "cluster": ("flash_attention_sm90", "flash_attention_bwd_sm90"),
     "service": ("population_lut", "rank_k", "flash_attention_sm90"),
 }
 # rank_k launches of one variant's deployment graph (``build_deploy``):
@@ -1431,12 +1470,13 @@ def _flash_bwd_rows(rng, dev) -> list:
         dt = getattr(torch, dtype)
         bf16 = dt == torch.bfloat16
         route = bwd_route(dt, d)
+        sq, sk = s if isinstance(s, tuple) else (s, s)
 
         def draw(*shape):
             return torch.from_numpy(
                 rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
-        q, k, v, do = (draw(b, h, s, d), draw(b, kvh, s, d),
-                       draw(b, kvh, s, d), draw(b, h, s, d))
+        q, k, v, do = (draw(b, h, sq, d), draw(b, kvh, sk, d),
+                       draw(b, kvh, sk, d), draw(b, h, sq, d))
         # the tensor-core backward takes the log-sum-exp the forward
         # kernel wrote, never one computed in plain torch
         lse = None
@@ -1464,7 +1504,7 @@ def _flash_bwd_rows(rng, dev) -> list:
                       for t in (q, k, v))
         lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                               enable_gqa=True)
-        pairs = _causal_pairs(s, s, 0, causal) * b * h
+        pairs = _causal_pairs(sq, sk, 0, causal) * b * h
         esz = q.element_size()
         if bf16:
             # bf16 operands: the bound is the card's bf16 tensor-core
@@ -1474,7 +1514,8 @@ def _flash_bwd_rows(rng, dev) -> list:
                 10.0 * d * pairs / CUDA_CORE_OPS_PER_S) * 1e3
         rows.append(_kernel_row(
             route,
-            f"b={b} h={h} kvh={kvh} s={s} d={d} "
+            (f"b={b} h={h} kvh={kvh} s={sq} d={d} " if sq == sk else
+             f"b={b} h={h} kvh={kvh} sq={sq} sk={sk} d={d} ") +
             f"{'bf16' if bf16 else 'f32'} "
             f"{'causal' if causal else 'non-causal'} ({label})",
             f"src/repro_torch/csrc/{route}.cu",
@@ -1700,19 +1741,31 @@ def _check_labels(labels: dict, n: int, what: str) -> None:
               f"{what}: label {k} not finite of shape ({n},)")
 
 
+# the 2-D DCT and the smoothed-DCT pipeline label one batch of 1000, not
+# two: the warm second batch is measured on gaussian3x3
+LABELS_REDUCED = {
+    "batches": {"earlier": 2, "run": 1},
+    "why": "the script's wall (the training lines of seamless, qwen, "
+           "compression and the cluster CLI joined it): the second, warm "
+           "batch took 6.0 and 11.2 s on an H100 80GB HBM3 at 700 W and is "
+           "measured on gaussian3x3"}
+
+
 def _label_accels():
-    """(accelerator, label batches of 1000) of the labels phase, in the
-    order the main path takes them: gaussian3x3, the MCM rows, the 2-D
-    DCT, the smoothed-DCT pipeline and its two stage views."""
+    """(accelerator, label batches of 1000, the line's ``reduced``) of the
+    labels phase, in the order the main path takes them: gaussian3x3, the
+    MCM rows, the 2-D DCT, the smoothed-DCT pipeline and its two stage
+    views."""
     from repro_torch.accel import (
         GaussianFilter, HEVCDct, MCMAccelerator, SmoothedDct,
     )
 
     smoothed = SmoothedDct()
-    return ([(GaussianFilter(), 2)]
-            + [(MCMAccelerator(r), 1) for r in range(4)]
-            + [(HEVCDct(), 2), (smoothed, 2)]
-            + [(view, 1) for view in smoothed.stage_views()])
+    return ([(GaussianFilter(), 2, None)]
+            + [(MCMAccelerator(r), 1, None) for r in range(4)]
+            + [(HEVCDct(), 1, LABELS_REDUCED),
+               (smoothed, 1, LABELS_REDUCED)]
+            + [(view, 1, None) for view in smoothed.stage_views()])
 
 
 def predicted_runs(acc, lib, genomes, *, structural: bool = True) -> dict:
@@ -1744,7 +1797,7 @@ def predicted_runs(acc, lib, genomes, *, structural: bool = True) -> dict:
 
 
 def phase_labels(acc, batches: int, seed: int, *,
-                 structural: bool = True) -> dict:
+                 structural: bool = True, reduced=None) -> dict:
     """``default_labeler(acc, lib, n_qor_samples=4, device="cuda")`` on
     ``batches`` batches of 1000 numpy-seeded genomes (the second warm),
     through a fresh ``SynthCache`` (``structural=False``: with the
@@ -1827,6 +1880,7 @@ def phase_labels(acc, batches: int, seed: int, *,
         "unique_variants_synthesized": len(ctx_cache),
         "runs_paid": runs_paid, "predicted": pred, "synth_cache": stats,
         "rank_k_launches_per_variant": per_variant,
+        "reduced": reduced,
         "launches": launches,
     }
     emit(out)
@@ -2935,7 +2989,9 @@ def phase_serve(arch: str, seed: int, *, approx: bool = False) -> dict:
                             "run": cfg.n_layers},
                "why": "the script's 1200 s limit: the approximate FFN "
                       "route prefills all 36 layers in 8.9 s and decodes "
-                      "at 20 tokens/s"}
+                      "at 20 tokens/s (18 layers until the training lines "
+                      "of seamless, qwen, compression and the cluster CLI "
+                      "joined the script)"}
     b, L, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
     g = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (b, L), generator=g)
@@ -3086,6 +3142,7 @@ TRAIN_CHECK_BATCH = 4
 # 80 GB card beside the 65k embedding and head and a layer's
 # activations
 TRAIN_FALCON_LAYERS = 32
+TRAIN_FALCON = dict(TRAIN, steps=6)
 # jamba-1.5-large's 8-layer block pattern (Mamba layers, attention at
 # position 4, MoE of 16 experts top-2 on every other layer) as one
 # super-block, bf16 masters and moments as its config asks, at a quarter
@@ -3103,6 +3160,28 @@ TRAIN_MOE_LAYERS = 4
 TRAIN_RESILIENT_CFG = dict(n_layers=2, d_model=256, n_heads=4, head_dim=64,
                            d_ff=512, vocab_size=2048)
 TRAIN_RESILIENT = dict(steps=6, batch=4, seq=256, ckpt_every=2, fail_at=3)
+# seamless-m4t-medium at TRAIN but lr 3e-4: at 1e-3 its loss rose over
+# the 12 steps through the kernels and through the plain attention alike
+# (12.658 -> 12.740 and -> 12.760), at 3e-4 it fell on both routes
+# (tests/train_step_profile.py lr; PERF.md §6)
+TRAIN_SEAMLESS = dict(TRAIN, lr=3e-4)
+# qwen2-vl-72b's depth on one card (_train_qwen's reduced.why), 6 steps
+TRAIN_QWEN_LAYERS = 1
+TRAIN_QWEN = dict(TRAIN, steps=6)
+# launch/train.py --compress on gemma-2b's first layers
+TRAIN_COMPRESS_LAYERS = 2
+TRAIN_COMPRESS = dict(steps=3, batch=8, seq=1024, n_micro=2, lr=1e-3,
+                      compress=True)
+# the cluster CLI as one NCCL process on gemma-2b at full size (its
+# micro-batch count is launch/shapes.py's n_microbatches at batch 8).  6
+# steps, not 3: with error feedback its loss still rose over 3 steps
+# (12.8728 -> 12.8931), as launch/train.py --compress's does at this
+# size, while the uncompressed step's fell: int8 with one scale a leaf
+# rounds most of the tied 256k embedding's gradient to 0, which AdamW's
+# first updates then leave in place (tests/compress_probe.py; PERF.md
+# §6)
+CLUSTER = dict(batch=8, seq=1024, steps=6)
+CLUSTER_TIMEOUT_S = 300
 # the kernel step's loss and gradients against the plain step's: bf16
 # rounding moves them, by as much as the JAX model code's own form of
 # attention (q scaled in bf16 before the float32 cast) moves them from
@@ -3134,23 +3213,40 @@ TRAIN_MAMBA_GRAD_NORM_FLOOR = 3e-3
 
 
 def _attn_layers(cfg) -> int:
-    return sum(k.mixer == "attn"
-               for _ in range(cfg.n_superblocks) for k in cfg.block_pattern)
+    """Flash attention calls of one forward: every self-attention layer,
+    an encoder's layers and each cross attention."""
+    return sum((k.mixer == "attn") + bool(k.cross_attn)
+               for _ in range(cfg.n_superblocks)
+               for k in cfg.block_pattern) + cfg.n_enc_layers
 
 
-def _train_flops(cfg, params: dict, tokens: int, pairs: int) -> dict:
-    """A step's model FLOPs: 6 x the matrix parameters a token meets
-    (the layers' projections and the head's, tied or not; a Mamba
-    layer's depthwise conv and A are not products) x tokens, plus the
-    attention's two products at 2 d flops a visible pair in the forward
-    and twice that in the backward; and the FLOPs with remat's second
-    forward of every layer."""
+def _train_positions(cfg, run: dict) -> int:
+    """Decoder positions a sequence: a front end's embeddings first."""
+    return run["seq"] + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+
+
+def _train_flops(cfg, params: dict, run: dict) -> dict:
+    """A step's model FLOPs: 6 x the matrix parameters a position meets
+    (the layers' projections, an encoder's over its ``seq`` frames, and
+    the head's, tied or not; a Mamba layer's depthwise conv and A are not
+    products) x positions, plus the attention's two products at 2 d
+    flops a visible pair in the forward and twice that in the backward
+    (causal self-attention, and an encoder's and cross attention's full
+    pairs); and the FLOPs with remat's second forward of every layer."""
+    b, s = run["batch"], _train_positions(cfg, run)
+    tokens = b * s
     layer = sum(p.numel() for n, p in params.items()
-                if n.startswith("layers.") and p.dim() >= 2
-                and not n.endswith((".conv_w", ".A_log")))
+                if n.startswith(("layers.", "encoder.layers."))
+                and p.dim() >= 2 and not n.endswith((".conv_w", ".A_log")))
     head = cfg.d_model * cfg.padded_vocab
-    attn_fwd = (4.0 * cfg.resolved_head_dim * pairs * cfg.n_heads
-                * _attn_layers(cfg))
+    self_layers = sum(k.mixer == "attn" for _ in range(cfg.n_superblocks)
+                      for k in cfg.block_pattern)
+    pairs = self_layers * _causal_pairs(s, s, 0, True)
+    if cfg.is_encoder_decoder:   # the encoder sees run["seq"] frames
+        pairs += (cfg.n_enc_layers * run["seq"] ** 2
+                  + (_attn_layers(cfg) - self_layers - cfg.n_enc_layers)
+                  * s * run["seq"])
+    attn_fwd = 4.0 * cfg.resolved_head_dim * cfg.n_heads * b * pairs
     model_flops = 6.0 * (layer + head) * tokens + 3 * attn_fwd
     return {"model_flops": model_flops,
             "flops_with_remat": model_flops + 2.0 * layer * tokens
@@ -3209,18 +3305,26 @@ def _train_falcon(seed: int) -> dict:
         "train_falcon-mamba-7b", cfg, seed,
         {"n_layers": {"published": published.n_layers,
                       "run": cfg.n_layers},
-         "steps": TRAIN["steps"],
+         "steps": {"train": TRAIN["steps"], "run": TRAIN_FALCON["steps"],
+                   "why": "the script's wall: 12 steps until the "
+                          "training lines of seamless, qwen, compression "
+                          "and the cluster CLI joined the script; the "
+                          "step's time is steady from the second step"},
          "why": "64 layers of float32 masters, moments and gradients "
                 "(7.27 B x 16 B = 117 GB) exceed one 80 GB card; "
                 f"{cfg.n_layers} layers (105 M parameters, 1.68 GB of "
                 "state each) fit with the embedding, the head and a "
                 "layer's activations (see max_memory_allocated); a smoke "
-                "run: the loss must fall, not converge"})
+                "run: the loss must fall, not converge"},
+        run=TRAIN_FALCON)
 
 
-def _train_full(name: str, cfg, seed: int, reduced_info: dict) -> dict:
-    """``train_loop`` at ``TRAIN``: the loss falls, nothing is NaN, the
-    kernels launched per layer and micro-batch pass."""
+def _train_full(name: str, cfg, seed: int, reduced_info: dict,
+                run: dict = TRAIN) -> dict:
+    """``train_loop`` at ``run`` (``TRAIN``): the loss falls, nothing is
+    NaN, the kernels launched per layer and micro-batch pass.  An
+    encoder-decoder's batches carry ``seq`` encoder frames and a vision
+    front end's ``frontend_len`` patch embeddings (``step_embeds``)."""
     import contextlib
     import math
 
@@ -3236,24 +3340,24 @@ def _train_full(name: str, cfg, seed: int, reduced_info: dict) -> dict:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
         state, losses = train_loop(cfg, device="cuda", seed=seed,
-                                   history=hist, log_every=TRAIN["steps"],
-                                   **TRAIN)
+                                   history=hist, log_every=run["steps"],
+                                   **run)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     model_params = sum(p.numel() for p in state["params"].values())
 
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = run["batch"] * _train_positions(cfg, run)
     steady = statistics.median(h["step_s"] for h in hist[1:])
-    flops = _train_flops(cfg, state["params"], tokens, TRAIN["batch"]
-                         * _causal_pairs(TRAIN["seq"], TRAIN["seq"], 0, True))
+    flops = _train_flops(cfg, state["params"], run)
     del state
     torch.cuda.empty_cache()
     out = {
         "phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "widths": _serve_widths(cfg),
-        "vocab": cfg.padded_vocab, "params": model_params, **TRAIN,
+        "vocab": cfg.padded_vocab, "params": model_params, **run,
+        "positions": _train_positions(cfg, run),
         "master_dtype": cfg.param_dtype, "reduced": reduced_info,
         "wall_s": wall,
         "first_step_s": hist[0]["step_s"], "step_s_median": steady,
@@ -3268,14 +3372,14 @@ def _train_full(name: str, cfg, seed: int, reduced_info: dict) -> dict:
         "launches": launches,
     }
     emit(out)
-    check(len(losses) == TRAIN["steps"], f"{name}: {len(losses)} steps")
+    check(len(losses) == run["steps"], f"{name}: {len(losses)} steps")
     for h in hist:
         check(all(math.isfinite(h[k]) for k in ("loss", "ce", "grad_norm")),
               f"{name}: step {h['step']} not finite: {h}")
     check(losses[-1] < losses[0],
           f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
     out["launches_expected"] = _train_launch_check(
-        name, cfg, launches, TRAIN["n_micro"] * TRAIN["steps"])
+        name, cfg, launches, run["n_micro"] * run["steps"])
     return out
 
 
@@ -3402,16 +3506,21 @@ def _train_check_run(name, arch, seed, mod, attr, form, main, plain_cost,
     from repro_torch import _build
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import step_embeds
     from repro_torch.models import Transformer
     from repro_torch.train import make_loss_fn
 
     published = get_config(arch)
-    cfg = replace(published, n_layers=TRAIN_CHECK_LAYERS)
+    cfg = replace(published, n_layers=TRAIN_CHECK_LAYERS,
+                  n_enc_layers=min(published.n_enc_layers,
+                                   TRAIN_CHECK_LAYERS))
     model = Transformer(cfg, device="cuda", trainable=True)
     model.init_weights(seed)
     b = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_BATCH, TRAIN["seq"],
                       seed=seed).batch_at(0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    batch.update(step_embeds(cfg, 0, TRAIN_CHECK_BATCH, TRAIN["seq"],
+                             "cuda"))
 
     def step(impl, form=None):
         orig = getattr(mod, attr)
@@ -3455,13 +3564,19 @@ def _train_check_run(name, arch, seed, mod, attr, form, main, plain_cost,
               "grad_max_rel": TRAIN_GRAD_MAX_FLOOR, **(floors or {})}
     tol = {k: max(floors[k], TRAIN_SPREAD_FACTOR * spread[k]) for k in err}
     fwd, bwd = MAIN_PATH[main]
-    check(launches[fwd] == TRAIN_CHECK_LAYERS * 2
-          and launches[bwd] == TRAIN_CHECK_LAYERS,
+    units = (_attn_layers(cfg) if fwd.startswith("flash")
+             else _mamba_layers(cfg))
+    check(launches[fwd] == units * 2 and launches[bwd] == units,
           f"{name}: launches {launches}")
     out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers,
            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN["seq"],
            "reduced": {"n_layers": {"published": published.n_layers,
                                     "run": cfg.n_layers},
+                       **({"n_enc_layers": {
+                           "published": published.n_enc_layers,
+                           "run": cfg.n_enc_layers}}
+                          if cfg.n_enc_layers else {}),
                        "batch": {"train": TRAIN["batch"],
                                  "run": TRAIN_CHECK_BATCH},
                        "why": "three full backward passes, one with "
@@ -3693,6 +3808,155 @@ def _train_hybrid(seed: int) -> dict:
     return out
 
 
+def _train_seamless(seed: int) -> dict:
+    from repro_torch.configs import get_config
+
+    return _train_full(
+        "train_seamless-m4t-medium", get_config("seamless-m4t-medium"), seed,
+        {"steps": TRAIN["steps"],
+         "lr": {"train": TRAIN["lr"], "run": TRAIN_SEAMLESS["lr"]},
+         "why": "full size; a smoke run: the loss must fall, not converge; "
+                "at lr 1e-3 it rose over 12 steps, through the plain "
+                "attention too (tests/train_step_profile.py lr)"},
+        run=TRAIN_SEAMLESS)
+
+
+def _train_qwen(seed: int) -> dict:
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    published = get_config("qwen2-vl-72b")
+    cfg = replace(published, n_layers=TRAIN_QWEN_LAYERS)
+    return _train_full(
+        "train_qwen2-vl-72b", cfg, seed,
+        {"n_layers": {"published": published.n_layers, "run": cfg.n_layers},
+         "steps": {"train": TRAIN["steps"], "run": TRAIN_QWEN["steps"],
+                   "why": "the script's wall; the step's time is steady "
+                          "from the second step"},
+         "why": "float32 masters, gradients and two moments are 16 B a "
+                "parameter: the embedding and the head (2.49 B) take 40 GB "
+                "and each layer (0.88 B) 14 GB, so with AdamW's "
+                "temporaries of the 5 GB embedding and the activations "
+                f"{cfg.n_layers} of 80 layers fit an 80 GB card "
+                "(max_memory_allocated); full width, 256 patch embeddings "
+                "before 1024 tokens"},
+        run=TRAIN_QWEN)
+
+
+def _train_check_encdec(seed: int) -> dict:
+    """``_train_check`` on seamless-m4t-medium's first
+    ``TRAIN_CHECK_LAYERS`` encoder and decoder layers at full width: the
+    encoder's self-attention and cross attention train non-causally
+    through the kernels, at 1024 frames."""
+    import repro_torch.models.attention as attn_mod
+
+    return _train_check_run("train_check_encdec", "seamless-m4t-medium",
+                            seed, attn_mod, "attn_op",
+                            _chunked_form_attention,
+                            "train_seamless-m4t-medium", "the plain "
+                            "attention's (b, h, s, s) float32 scores")
+
+
+def _train_compress(seed: int) -> dict:
+    """``launch/train.py --compress`` (int8 error-feedback gradients) on
+    gemma-2b's first ``TRAIN_COMPRESS_LAYERS`` layers at full width."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    published = get_config("gemma-2b")
+    cfg = replace(published, n_layers=TRAIN_COMPRESS_LAYERS)
+    return _train_full(
+        "train_compress", cfg, seed,
+        {"n_layers": {"published": published.n_layers, "run": cfg.n_layers},
+         "steps": TRAIN_COMPRESS["steps"],
+         "why": "the quantization is per tensor and the same in every "
+                "layer; time"},
+        run=TRAIN_COMPRESS)
+
+
+def _cluster(seed: int) -> dict:
+    """``python -m repro_torch.launch.cluster`` as one NCCL process on the
+    card (gemma-2b at full size, gradients averaged by
+    ``compressed_psum``): the loss falls and the child's kernels launch
+    per layer and micro-batch pass; then ``compressed_psum`` on a
+    one-rank NCCL group of this process is its plain formula, bit for
+    bit."""
+    import json as _json
+    import socket
+    import subprocess
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim.compress import compressed_psum
+
+    run = CLUSTER
+    cmd = [sys.executable, "-m", "repro_torch.launch.cluster", "--arch",
+           "gemma-2b", "--device", "cuda", "--compress", "--seed",
+           str(seed)] + [f"--{k.replace('_', '-')}={v}"
+                         for k, v in run.items()]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "MASTER_ADDR",
+              "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=CLUSTER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"cluster: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    out_text = proc.stdout
+    first, last = (float(x) for x in re.search(
+        r"first loss ([\d.]+) -> last ([\d.]+)", out_text).groups())
+    launches = _json.loads(re.search(r"\[cluster\] launches (\{.*\})",
+                                     out_text).group(1))
+    n_micro = int(re.search(r"n_micro (\d+)", out_text).group(1))
+    step_s = [float(x) for x in re.findall(r"step_s=([\d.]+)", out_text)]
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        g = torch.randn((4096, 1024), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        got = compressed_psum(g)
+        scale = torch.clamp(g.abs().max() / 127.0, min=1e-12)
+        plain = torch.clamp(torch.round(g / scale), -127, 127) * scale
+        same = bool(torch.equal(got, plain))
+    finally:
+        dist.destroy_process_group()
+    cfg = get_config("gemma-2b")
+    out = {"phase": "cluster", "arch": cfg.name, "command": " ".join(
+               ["python"] + cmd[1:]),
+           **run, "n_micro": n_micro, "world": 1, "backend": "nccl",
+           "reduced": {"steps": {"run": run["steps"],
+                                 "why": "compressed, the loss rose over "
+                                        "3 steps, as launch/train.py "
+                                        "--compress's does at this size "
+                                        "(tests/compress_probe.py)"},
+                       "world": 1,
+                       "why": "one card: a group of one process; the "
+                              "2-process step runs on the CPU (gloo) in "
+                              "tests/test_torch_dist.py"},
+           "wall_s": wall, "step_s": step_s, "loss_first": first,
+           "loss_last": last, "compressed_psum_equals_plain": same,
+           "launches": launches}
+    emit(out)
+    check(last < first, f"cluster: the loss did not fall ({first} -> "
+                        f"{last})")
+    check(same, "cluster: compressed_psum on one rank differs from "
+                "round(x / scale) * scale")
+    out["launches_expected"] = _train_launch_check(
+        "cluster", cfg, launches, n_micro * run["steps"])
+    return out
+
+
 def phase_train(seed: int) -> list:
     """The train phase (module docstring, phase 11): the lines whose
     launches count toward the kernels' main-path totals."""
@@ -3703,6 +3967,11 @@ def phase_train(seed: int) -> list:
     runs.append(_train_moe(seed))
     runs.append(_train_hybrid(seed))
     runs.append(_train_resilient(seed))
+    runs.append(_train_seamless(seed))
+    _train_check_encdec(seed)
+    runs.append(_train_qwen(seed))
+    runs.append(_train_compress(seed))
+    runs.append(_cluster(seed))
     return runs
 
 
@@ -4752,8 +5021,8 @@ def main(argv=None) -> int:
             phase_rank_k_fresh()
         runs = []
         if "labels" in phases:
-            runs += [phase_labels(acc, batches, args.seed)
-                     for acc, batches in _label_accels()]
+            runs += [phase_labels(acc, batches, args.seed, reduced=reduced)
+                     for acc, batches, reduced in _label_accels()]
             from repro_torch.accel import GaussianFilter
 
             runs.append(phase_labels(GaussianFilter(), 1, args.seed,

@@ -74,9 +74,9 @@ KERNELS: Dict[str, tuple] = {
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _F, _P]),
     # (q, k, v, out, dout, lse, dq, dk, dv, delta, dk_part, dv_part, B, H,
-    #  KVH, s, d, causal, scale, stream)
+    #  KVH, sq, sk, d, causal, scale, stream)
     "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90",
-                                 [_P] * 12 + [_I] * 6 + [_F, _P]),
+                                 [_P] * 12 + [_I] * 7 + [_F, _P]),
     # (x, dt, A, B, C, h0, y, hT, chunk states or null, b, s, di, n,
     #  stream)
     "selective_scan": ("selective_scan_fwd", [_P] * 9 + [_I] * 4 + [_P]),

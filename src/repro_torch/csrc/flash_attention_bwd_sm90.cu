@@ -6,7 +6,8 @@
 //   dP_ij = dO_i . v_j,  D_i = dO_i . O_i,  dS_ij = P_ij (dP_ij - D_i),
 //   dQ_i = scale * sum_j dS_ij k_j,  dK_j = scale * sum_i dS_ij q_i,
 //   dV_j = sum_i P_ij dO_i,
-//   with j visible to i iff j <= i under the causal mask, and the kv head
+//   with j visible to i iff j <= i under the causal mask (always
+//   otherwise, i < sq, j < sk), and the kv head
 //   g = h / (H / KVH) of query head h: dK and dV of head g sum over its
 //   query group.
 //
@@ -71,11 +72,14 @@
 //      Shared memory at d = 256: K, V 64 KB, two (Q, dO) stages 128 KB,
 //      P^T and dS^T 16 KB.
 //   4. reduce (H > KVH only): each query head's dK/dV CTA wrote float32
-//      partials to scratch the wrapper allocates (B, H, s, d) x 2; this
+//      partials to scratch the wrapper allocates (B, H, sk, d) x 2; this
 //      sums a group's heads in ascending order and rounds once to bf16.
 //      With H = KVH the dK/dV CTA writes bf16 directly.
-// Any s >= 1 is taken: TMA zero-fills rows past s, and keys and queries
-// past s are masked (P = 0) explicitly.
+// Queries and keys have lengths of their own, sq and sk (cross attention:
+// sq decoder positions over sk encoder frames); causal attention takes
+// sq == sk only (the wrapper checks).  Any sq, sk >= 1 is taken: TMA
+// zero-fills rows past either length, and queries past sq and keys past
+// sk are masked (P = 0) explicitly, each against its own length.
 
 #include "flash_sm90.cuh"
 
@@ -146,8 +150,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tv,
               const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, int B, int H, int KVH, int s,
-              int causal, float scale) {
+              __nv_bfloat16* __restrict__ dq, int B, int H, int KVH, int sq,
+              int sk, int causal, float scale) {
   using C = DqCfg<D>;
   constexpr int NP = C::kPanels;
   constexpr int kStages = C::kStages;
@@ -160,13 +164,13 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_bar = bars + 16 * kStages;
 
   // heaviest causal tiles (the last query tiles) first
-  const int nqt = (s + C::kBQ - 1) / C::kBQ;
+  const int nqt = (sq + C::kBQ - 1) / C::kBQ;
   const int bh = blockIdx.x % (B * H);
   const int q0 = (nqt - 1 - (int)blockIdx.x / (B * H)) * C::kBQ;
   const int h = bh % H;
   const int b = bh / H;
   const int g = h / (H / KVH);
-  const int kend = causal ? min(s, q0 + C::kBQ) : s;
+  const int kend = causal ? min(sk, q0 + C::kBQ) : sk;
   const int ntiles = (kend + kTile - 1) / kTile;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -215,15 +219,15 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int quad = lane % 4;
   const int row_a = q0 + wg * kTile + (warp % 4) * 16 + lane / 4;
   const int row_b = row_a + 8;
-  const int wg_last = min(q0 + wg * kTile + kTile - 1, s - 1);
-  const bool wg_active = q0 + wg * kTile < s;
+  const int wg_last = min(q0 + wg * kTile + kTile - 1, sq - 1);
+  const bool wg_active = q0 + wg * kTile < sq;
   const uint32_t q_wg = q_s + wg * kPanelBytes;
   const uint32_t do_wg = do_s + wg * kPanelBytes;
-  const long long rbase = (long long)bh * s;
-  const float lse_a = row_a < s ? lse[rbase + row_a] : 0.f;
-  const float lse_b = row_b < s ? lse[rbase + row_b] : 0.f;
-  const float del_a = row_a < s ? delta[rbase + row_a] : 0.f;
-  const float del_b = row_b < s ? delta[rbase + row_b] : 0.f;
+  const long long rbase = (long long)bh * sq;
+  const float lse_a = row_a < sq ? lse[rbase + row_a] : 0.f;
+  const float lse_b = row_b < sq ? lse[rbase + row_b] : 0.f;
+  const float del_a = row_a < sq ? delta[rbase + row_a] : 0.f;
+  const float del_b = row_b < sq ? delta[rbase + row_b] : 0.f;
 
   float acc[NP][32];
 #pragma unroll
@@ -271,7 +275,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * j + 2 * quad + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          const bool vis = key < s && (!causal || key <= row);
+          const bool vis = key < sk && (!causal || key <= row);
           const float p =
               vis ? expf(sc[4 * j + e] * scale - (e < 2 ? lse_a : lse_b))
                   : 0.f;
@@ -315,11 +319,11 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 64 * p + 8 * j + 2 * quad;
-      if (row_a < s)
+      if (row_a < sq)
         *reinterpret_cast<__nv_bfloat162*>(dq + (rbase + row_a) * D + col) =
             __floats2bfloat162_rn(acc[p][4 * j] * scale,
                                   acc[p][4 * j + 1] * scale);
-      if (row_b < s)
+      if (row_b < sq)
         *reinterpret_cast<__nv_bfloat162*>(dq + (rbase + row_b) * D + col) =
             __floats2bfloat162_rn(acc[p][4 * j + 2] * scale,
                                   acc[p][4 * j + 3] * scale);
@@ -356,7 +360,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                 float* __restrict__ dk_part, float* __restrict__ dv_part,
-                int B, int H, int KVH, int s, int causal, float scale) {
+                int B, int H, int KVH, int sq, int sk, int causal,
+                float scale) {
   using C = DkvCfg<D>;
   constexpr int NP = C::kPanels;
   constexpr int kStages = C::kStages;
@@ -377,7 +382,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = bh / H;
   const int g = h / (H / KVH);
   const int qt0 = causal ? k0 / kTile : 0;
-  const int ntiles = (s + kTile - 1) / kTile - qt0;
+  const int ntiles = (sq + kTile - 1) / kTile - qt0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -428,7 +433,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_a = (warp % 4) * 16 + lane / 4;   // key row in the tile
   const int key_a = k0 + r_a;
   const int key_b = key_a + 8;
-  const long long rbase = (long long)bh * s;
+  const long long rbase = (long long)bh * sq;   // lse, delta rows
   const uint32_t a_s = wg == 0 ? pt_s : dst_s;   // A of this wg's product
 
   float acc[NP][32];
@@ -451,8 +456,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int q = q0 + 32 * wg + 8 * j + 2 * quad + c;
-        lq[2 * j + c] = q < s ? lse[rbase + q] : 0.f;
-        dl[2 * j + c] = q < s ? delta[rbase + q] : 0.f;
+        lq[2 * j + c] = q < sq ? lse[rbase + q] : 0.f;
+        dl[2 * j + c] = q < sq ? delta[rbase + q] : 0.f;
       }
     mbar_wait(bars + 8 * st, (t / kStages) & 1);
 
@@ -491,7 +496,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         const int c = 2 * j + (e & 1);
         const int q = q0 + 32 * wg + 8 * j + 2 * quad + (e & 1);
         const int key = e < 2 ? key_a : key_b;
-        const bool vis = key < s && q < s && (!causal || key <= q);
+        const bool vis = key < sk && q < sq && (!causal || key <= q);
         const float p = vis ? expf(sc[4 * j + e] * scale - lq[c]) : 0.f;
         sc[4 * j + e] = p;
         dp[4 * j + e] = p * (dp[4 * j + e] - dl[c]);
@@ -543,7 +548,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const bool direct = H == KVH;
   __nv_bfloat16* out = wg == 0 ? dv : dk;
   float* part = wg == 0 ? dv_part : dk_part;
-  const long long obase = direct ? ((long long)b * KVH + g) * s : rbase;
+  const long long obase =
+      (direct ? (long long)b * KVH + g : (long long)bh) * sk;
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -551,7 +557,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int key = half ? key_b : key_a;
-        if (key >= s) continue;
+        if (key >= sk) continue;
         const long long at = (obase + key) * D + 64 * p + 8 * j + 2 * quad;
         const float x = acc[p][4 * j + 2 * half] * mul;
         const float y = acc[p][4 * j + 2 * half + 1] * mul;
@@ -566,7 +572,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // --- 4. the group's sum ----------------------------------------------------
 
 // out[b, g] = bf16(sum_{r < rep} part[b, g * rep + r]) in ascending r, for
-// dK (blockIdx.y 0) and dV (1); plane = s * d floats a head
+// dK (blockIdx.y 0) and dV (1); plane = sk * d floats a head
 __global__ void bwd_reduce_kernel(const float* __restrict__ dk_part,
                                   const float* __restrict__ dv_part,
                                   __nv_bfloat16* __restrict__ dk,
@@ -600,14 +606,15 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* delta, float* dk_part, float* dv_part, int B, int H,
-           int KVH, int s, int causal, float scale, cudaStream_t stream) {
+           int KVH, int sq, int sk, int causal, float scale,
+           cudaStream_t stream) {
   using Q = DqCfg<D>;
   using KV = DkvCfg<D>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, D, s, B * H, kTile) ||
-      !make_map(&tk, k, D, s, B * KVH, kTile) ||
-      !make_map(&tv, v, D, s, B * KVH, kTile) ||
-      !make_map(&tdo, dout, D, s, B * H, kTile))
+  if (!make_map(&tq, q, D, sq, B * H, kTile) ||
+      !make_map(&tk, k, D, sk, B * KVH, kTile) ||
+      !make_map(&tv, v, D, sk, B * KVH, kTile) ||
+      !make_map(&tdo, dout, D, sq, B * H, kTile))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -621,25 +628,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
 
-  const long long rows = (long long)B * H * s;
+  const long long rows = (long long)B * H * sq;
   bwd_delta_kernel<<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), delta, rows, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const unsigned nq = (unsigned)((s + Q::kBQ - 1) / Q::kBQ);
+  const unsigned nq = (unsigned)((sq + Q::kBQ - 1) / Q::kBQ);
   bwd_dq_kernel<D><<<nq * B * H, Q::kThreads, Q::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse, delta, dqp, B, H, KVH, s, causal, scale);
+      tq, tk, tv, tdo, lse, delta, dqp, B, H, KVH, sq, sk, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const unsigned nk = (unsigned)((s + kTile - 1) / kTile);
+  const unsigned nk = (unsigned)((sk + kTile - 1) / kTile);
   bwd_dkdv_kernel<D><<<nk * B * H, KV::kThreads, KV::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse, delta, dkp, dvp, dk_part, dv_part, B, H, KVH, s,
-      causal, scale);
+      tq, tk, tv, tdo, lse, delta, dkp, dvp, dk_part, dv_part, B, H, KVH, sq,
+      sk, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   if (H != KVH) {
-    const long long plane = (long long)s * D;
+    const long long plane = (long long)sk * D;
     const long long n4 = (long long)B * KVH * plane / 4;
     const long long want = (n4 + 255) / 256;
     const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
@@ -651,17 +658,18 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// bf16 q, out, dout, dq (B, H, s, d); k, v, dk, dv (B, KVH, s, d); lse
-// (B, H, s) float32 from flash_attention_sm90_fwd; float32 scratch delta
-// (B, H, s) and, when H > KVH, dk_part and dv_part (B, H, s, d) (null
-// otherwise); every base 16-byte aligned.  Returns cudaGetLastError()
-// after the last launch, or the first error.
+// bf16 q, out, dout, dq (B, H, sq, d); k, v, dk, dv (B, KVH, sk, d); lse
+// (B, H, sq) float32 from flash_attention_sm90_fwd; float32 scratch delta
+// (B, H, sq) and, when H > KVH, dk_part and dv_part (B, H, sk, d) (null
+// otherwise); causal only at sq == sk; every base 16-byte aligned.
+// Returns cudaGetLastError() after the last launch, or the first error.
 extern "C" int flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, void* dk_part, void* dv_part, int B, int H, int KVH, int s,
-    int d, int causal, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || s <= 0 ||
+    void* delta, void* dk_part, void* dv_part, int B, int H, int KVH, int sq,
+    int sk, int d, int causal, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || sq <= 0 || sk <= 0 ||
+      (causal && sq != sk) ||
       (H != KVH && (dk_part == nullptr || dv_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -679,13 +687,13 @@ extern "C" int flash_attention_bwd_sm90(
   switch (d) {
     case 64:
       return launch<64>(q, k, v, o, dout, l, dq, dk, dv, dl, kp, vp, B, H,
-                        KVH, s, causal, scale, st);
+                        KVH, sq, sk, causal, scale, st);
     case 128:
       return launch<128>(q, k, v, o, dout, l, dq, dk, dv, dl, kp, vp, B, H,
-                         KVH, s, causal, scale, st);
+                         KVH, sq, sk, causal, scale, st);
     case 256:
       return launch<256>(q, k, v, o, dout, l, dq, dk, dv, dl, kp, vp, B, H,
-                         KVH, s, causal, scale, st);
+                         KVH, sq, sk, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

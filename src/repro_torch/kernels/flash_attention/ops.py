@@ -140,9 +140,11 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                lse: torch.Tensor | None = None) -> tuple:
     """Launch the routed backward kernel: (dq, dk, dv) in q's dtype, of
     the attention ``out`` = attention(q, k, v, causal, q_offset=0)
-    against the output gradient ``dout``.  The tensor-core route (bf16)
-    takes ``lse``, the (b, h, s) float32 log-sum-exp that the forward
-    kernel wrote with ``with_lse``; the float32 route recomputes it."""
+    against the output gradient ``dout``, at any query and key lengths
+    sq, sk (cross attention).  The tensor-core route (bf16) takes causal
+    attention at sq == sk only, and ``lse``, the (b, h, sq) float32
+    log-sum-exp that the forward kernel wrote with ``with_lse``; the
+    float32 route recomputes it."""
     _check(q, k, v, 0)
     _require_cuda(q)
     if any(t.dtype != q.dtype for t in (k, v, out, dout)):
@@ -158,6 +160,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     route = bwd_route(q.dtype, d)
     tensor_cores = route == "flash_attention_bwd_sm90"
     if tensor_cores:
+        if causal and sq != sk:
+            raise ValueError(f"{route} takes causal attention at sq == sk "
+                             f"only, got {sq}, {sk}")
         if lse is None:
             raise ValueError(f"{route} takes the forward kernel's "
                              "log-sum-exp: pass lse")
@@ -166,8 +171,6 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"lse must be float32 {(b, h, sq)} on "
                              f"{q.device}, got {lse.dtype} "
                              f"{tuple(lse.shape)} on {lse.device}")
-        if sq != sk:
-            raise ValueError(f"{route} takes sq == sk, got {sq}, {sk}")
     if max(h, b) > 65535:
         raise ValueError(f"{b} batch rows x {h} heads outside the kernel's "
                          "grid")
@@ -193,7 +196,8 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                     None if part is None else part[0].data_ptr(),
                     None if part is None else part[1].data_ptr(),
-                    b, h, kvh, sq, d, int(bool(causal)), float(d ** -0.5))
+                    b, h, kvh, sq, sk, d, int(bool(causal)),
+                    float(d ** -0.5))
         return dq, dk, dv
     lse_scratch = torch.empty_like(delta)   # recomputed by the kernel
     _build.call(route, q.device, q.data_ptr(), k.data_ptr(),

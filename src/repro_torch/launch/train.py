@@ -21,8 +21,14 @@ moments in the config's ``param_dtype`` and ``moment_dtype`` (bf16 for
 jamba).  ``--n-layers`` cuts the depth (a multiple of the block
 pattern; the widths stay published) where the training state exceeds
 one card: falcon-mamba-7b's 64 layers take 7.27 B x 16 B = 117 GB, 32
-fit an 80 GB card.  The encoder-decoder and front-end archs serve but do
-not train yet: their ``forward_train`` raises.
+fit an 80 GB card.  An encoder-decoder's batch carries ``enc_embeds``
+(batch, seq, d_model) and a vision front end's ``embeds`` (batch,
+frontend_len, d_model), normals of standard deviation 0.1 as the JAX
+package's loop draws them, but on the model's device from a
+``torch.Generator`` seeded with the step and the row (``step_embeds``):
+the port cannot draw ``jax.random``'s bits, so its embeddings differ
+from the JAX package's; a caller that needs them equal passes its own
+(``train_loop``'s ``embeds_at``).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import replace
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -42,7 +48,32 @@ from ..models.transformer import Transformer
 from ..optim.adamw import AdamW
 from ..train.step import init_state, make_train_step
 
-__all__ = ["train_loop", "main"]
+__all__ = ["train_loop", "step_embeds", "main"]
+
+
+def step_embeds(cfg, step: int, batch: int, seq: int, device=None,
+                rows: Optional[range] = None) -> Dict[str, torch.Tensor]:
+    """The front-end inputs of step ``step``'s batch: an encoder-decoder's
+    ``enc_embeds`` (batch, seq, d_model), a vision front end's ``embeds``
+    (batch, frontend_len, d_model), float32 normals of standard deviation
+    0.1 drawn on ``device``, row ``r`` from a ``torch.Generator`` seeded
+    with ``step * batch + r``; {} for the other archs.  ``rows`` draws only those
+    rows of the batch (a rank's share), the same values as the whole
+    batch's.  A CPU and a CUDA generator draw different values."""
+    if cfg.is_encoder_decoder:
+        key, n = "enc_embeds", seq
+    elif cfg.frontend == "vision":
+        key, n = "embeds", cfg.frontend_len
+    else:
+        return {}
+    dev = torch.device(device if device is not None else "cpu")
+    rows = range(batch) if rows is None else rows
+    x = torch.empty((len(rows), n, cfg.d_model), dtype=torch.float32,
+                    device=dev)
+    for i, r in enumerate(rows):
+        gen = torch.Generator(dev).manual_seed(int(step) * batch + r)
+        x[i].normal_(0.0, 0.1, generator=gen)
+    return {key: x}
 
 
 def train_loop(
@@ -61,12 +92,15 @@ def train_loop(
     log_every: int = 10,
     device=None,
     history: Optional[List[dict]] = None,
+    embeds_at: Optional[Callable[[int], Dict[str, torch.Tensor]]] = None,
 ):
     """Train ``cfg`` for ``steps`` steps; returns (state, losses).
 
     ``history``, if given, receives one dict a step: its metrics as
     floats and ``step_s``, the host seconds from the batch's upload to
-    the loss read back (which waits for the card)."""
+    the loss read back (which waits for the card).  ``embeds_at(step)``,
+    if given, returns the step's front-end inputs in place of
+    ``step_embeds``."""
     pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed)
     opt = AdamW(lr=lr, warmup_steps=max(steps // 10, 1),
                 moment_dtype=cfg.moment_dtype)
@@ -92,6 +126,9 @@ def train_loop(
         b = pipe.batch_at(step)
         batch_dev = {k: torch.from_numpy(b[k]).to(model.device)
                      for k in ("tokens", "labels")}
+        extra = (embeds_at(step) if embeds_at is not None
+                 else step_embeds(cfg, step, batch, seq, model.device))
+        batch_dev.update({k: v.to(model.device) for k, v in extra.items()})
         state, metrics = step_fn(state, batch_dev)
         loss = float(metrics["loss"])
         losses.append(loss)

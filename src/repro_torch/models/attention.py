@@ -35,11 +35,13 @@ def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     return {
-        "norm": ParamSpec((d,), init="zeros"),
-        "wq": ParamSpec((d, cfg.n_heads * hd)),
-        "wk": ParamSpec((d, cfg.n_kv_heads * hd)),
-        "wv": ParamSpec((d, cfg.n_kv_heads * hd)),
-        "wo": ParamSpec((cfg.n_heads * hd, d)),
+        "norm": ParamSpec((d,), init="zeros", logical=("norm",)),
+        "wq": ParamSpec((d, cfg.n_heads * hd), logical=("embed", "heads")),
+        "wk": ParamSpec((d, cfg.n_kv_heads * hd),
+                        logical=("embed", "kv_heads")),
+        "wv": ParamSpec((d, cfg.n_kv_heads * hd),
+                        logical=("embed", "kv_heads")),
+        "wo": ParamSpec((cfg.n_heads * hd, d), logical=("heads", "embed")),
     }
 
 
@@ -156,7 +158,11 @@ class CrossAttention(ParamModule):
         """Prefill (``pos`` None): k/v projected from ``enc_out`` and
         attended; with a cache, their bf16 copies written to it.  Decode
         (``pos`` given): attention over the cached k/v (``enc_out`` is
-        not read), as the JAX package's decode step does."""
+        not read), as the JAX package's decode step does.  Training
+        (grad enabled, no cache) takes the prefill path in every layer:
+        ``attn_op`` runs ``FlashAttention``, the forward and backward
+        kernels non-causally at sq = the decoder's length, sk = the
+        encoder's."""
         cfg = self.cfg
         policy = self.policy if policy is None else policy
         h = rms_norm(x, self.norm, cfg.rms_eps)

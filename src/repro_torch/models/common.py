@@ -36,6 +36,9 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
     scale: float = 0.02
+    # each dimension's logical axis name (the JAX package's), which
+    # dist.sharding resolves to mesh axes; () where none is declared
+    logical: Tuple[Optional[str], ...] = ()
 
 
 def init_params(

@@ -46,10 +46,10 @@ MOE_GROUP = 4096
 def dense_mlp_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm": ParamSpec((d,), init="zeros"),
-        "wi": ParamSpec((d, f)),
-        "wg": ParamSpec((d, f)),
-        "wo": ParamSpec((f, d)),
+        "norm": ParamSpec((d,), init="zeros", logical=("norm",)),
+        "wi": ParamSpec((d, f), logical=("embed", "mlp")),
+        "wg": ParamSpec((d, f), logical=("embed", "mlp")),
+        "wo": ParamSpec((f, d), logical=("mlp", "embed")),
     }
 
 
@@ -75,11 +75,14 @@ class DenseMLP(ParamModule):
 def moe_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
     return {
-        "norm": ParamSpec((d,), init="zeros"),
-        "router": ParamSpec((d, e)),
-        "wi": ParamSpec((e, d, f)),
-        "wg": ParamSpec((e, d, f)),
-        "wo": ParamSpec((e, f, d)),
+        "norm": ParamSpec((d,), init="zeros", logical=("norm",)),
+        "router": ParamSpec((d, e), logical=("embed", None)),
+        "wi": ParamSpec((e, d, f),
+                        logical=("experts", "embed", "expert_mlp")),
+        "wg": ParamSpec((e, d, f),
+                        logical=("experts", "embed", "expert_mlp")),
+        "wo": ParamSpec((e, f, d),
+                        logical=("experts", "expert_mlp", "embed")),
     }
 
 

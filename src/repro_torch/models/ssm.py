@@ -34,16 +34,17 @@ def mamba_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, di = cfg.d_model, cfg.d_inner
     n, dtr, ck = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
     return {
-        "norm": ParamSpec((d,), init="zeros"),
-        "in_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((ck, di), scale=0.1),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "x_proj": ParamSpec((di, dtr + 2 * n)),
-        "dt_proj": ParamSpec((dtr, di)),
-        "dt_bias": ParamSpec((di,), init="ones", scale=1.0),
-        "A_log": ParamSpec((di, n), init="ones"),
-        "D": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d)),
+        "norm": ParamSpec((d,), init="zeros", logical=("norm",)),
+        "in_proj": ParamSpec((d, 2 * di), logical=("embed", "mlp")),
+        "conv_w": ParamSpec((ck, di), scale=0.1, logical=("conv", "mlp")),
+        "conv_b": ParamSpec((di,), init="zeros", logical=("mlp",)),
+        "x_proj": ParamSpec((di, dtr + 2 * n), logical=("mlp", None)),
+        "dt_proj": ParamSpec((dtr, di), logical=("dt", "mlp")),
+        "dt_bias": ParamSpec((di,), init="ones", scale=1.0,
+                             logical=("mlp",)),
+        "A_log": ParamSpec((di, n), init="ones", logical=("mlp", "state")),
+        "D": ParamSpec((di,), init="ones", logical=("mlp",)),
+        "out_proj": ParamSpec((di, d), logical=("mlp", "embed")),
     }
 
 

@@ -39,7 +39,10 @@ own final norm) over ``enc_embeds``, and each decoder layer a
 MLP; a front-end config (``frontend="vision"``) takes ``embeds``, placed
 before the token embeddings, as the JAX package's ``forward`` does.
 Both front ends are stubs there: the caller gives the embeddings.
-Training these two families is not ported: ``forward_train`` raises.
+``forward_train`` takes them too: the encoder's layers run each under
+its own remat as the decoder's do, and cross attention's k/v are
+projected from the encoder's output in every layer (no cache in
+training); its attention runs non-causally at sq = s_dec, sk = s_enc.
 """
 
 from __future__ import annotations
@@ -54,16 +57,51 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .approx_linear import ApproxPolicy
-from .attention import (Attention, CrossAttention, init_cross_cache,
-                        init_kv_cache)
+from .attention import (Attention, CrossAttention, attn_param_specs,
+                        init_cross_cache, init_kv_cache)
 from .common import ParamSpec, init_params, make_rope, rms_norm
 from .config import LayerKind, ModelConfig
-from .moe import DenseMLP, MoE, Routing, moe_aux
-from .ssm import Mamba, init_mamba_cache
+from .moe import (DenseMLP, MoE, Routing, dense_mlp_param_specs, moe_aux,
+                  moe_param_specs)
+from .ssm import Mamba, init_mamba_cache, mamba_param_specs
 
-__all__ = ["Encoder", "Layer", "Transformer", "init_caches"]
+__all__ = ["Encoder", "Layer", "Transformer", "init_caches", "param_specs"]
 
 Caches = List[Dict[str, torch.Tensor]]
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Every parameter's ParamSpec under the ``Transformer``'s names, from
+    the config alone: no tensor is allocated (``launch.shapes`` reads it
+    at full size)."""
+    d, v = cfg.d_model, cfg.padded_vocab
+    specs: Dict[str, ParamSpec] = {
+        "embed": ParamSpec((v, d), logical=("vocab", "embed"))}
+    for j, kind in enumerate(k for _ in range(cfg.n_superblocks)
+                             for k in cfg.block_pattern):
+        mods = [("attn", attn_param_specs(cfg)) if kind.mixer == "attn"
+                else ("mamba", mamba_param_specs(cfg))]
+        if kind.cross_attn:
+            mods.append(("cross", attn_param_specs(cfg)))
+        if kind.mlp == "dense":
+            mods.append(("mlp", dense_mlp_param_specs(cfg)))
+        elif kind.mlp == "moe":
+            mods.append(("moe", moe_param_specs(cfg)))
+        for mod, mspecs in mods:
+            for name, spec in mspecs.items():
+                specs[f"layers.{j}.{mod}.{name}"] = spec
+    specs["final_norm"] = ParamSpec((d,), init="zeros", logical=("norm",))
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, v), logical=("embed", "vocab"))
+    if cfg.is_encoder_decoder:
+        for j in range(cfg.n_enc_layers):
+            for mod, mspecs in (("attn", attn_param_specs(cfg)),
+                                ("mlp", dense_mlp_param_specs(cfg))):
+                for name, spec in mspecs.items():
+                    specs[f"encoder.layers.{j}.{mod}.{name}"] = spec
+        specs["encoder.final_norm"] = ParamSpec((d,), init="zeros",
+                                                logical=("norm",))
+    return specs
 
 
 class Layer(nn.Module):
@@ -214,21 +252,7 @@ class Transformer(nn.Module):
     def param_specs(self) -> Dict[str, ParamSpec]:
         """Every parameter's ParamSpec, keyed and ordered as
         ``named_parameters``."""
-        cfg = self.cfg
-        d, v = cfg.d_model, cfg.padded_vocab
-        specs: Dict[str, ParamSpec] = {"embed": ParamSpec((v, d))}
-        stacks = [("layers", self.layers)]
-        if cfg.is_encoder_decoder:
-            stacks.append(("encoder.layers", self.encoder.layers))
-            specs["encoder.final_norm"] = ParamSpec((d,), init="zeros")
-        for prefix, layers in stacks:
-            for j, layer in enumerate(layers):
-                for mod_name, mod in layer.named_children():
-                    for name, spec in mod.specs.items():
-                        specs[f"{prefix}.{j}.{mod_name}.{name}"] = spec
-        specs["final_norm"] = ParamSpec((d,), init="zeros")
-        if not cfg.tie_embeddings:
-            specs["lm_head"] = ParamSpec((d, v))
+        specs = param_specs(self.cfg)
         return {name: specs[name] for name, _ in self.named_parameters()}
 
     @torch.no_grad()
@@ -329,31 +353,44 @@ class Transformer(nn.Module):
                             impl=impl, policy=policy, enc_out=enc_out)
         return self.logits(x)
 
-    def forward_train(self, tokens: torch.Tensor, *, impl: str = "kernel",
+    def forward_train(self, tokens: Optional[torch.Tensor], *,
+                      embeds: Optional[torch.Tensor] = None,
+                      enc_embeds: Optional[torch.Tensor] = None,
+                      impl: str = "kernel",
                       policy: Optional[ApproxPolicy] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Differentiable teacher-forcing forward: ((b, s, padded_vocab)
-        bf16 logits, the load-balance loss summed over the MoE layers,
-        float32, 0 without them).  Each layer keeps only its input for
-        the backward and runs again there.  The encoder-decoder and
-        front-end families do not train here yet."""
-        if self.cfg.is_encoder_decoder or self.cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the encoder-decoder and "
-                "front-end families (embeds, enc_embeds, the text-only loss) "
-                "is not ported yet")
-        x = self.embed_tokens(tokens)
+        """Differentiable teacher-forcing forward: ((b, f + s,
+        padded_vocab) bf16 logits, the load-balance loss summed over the
+        MoE layers, float32, 0 without them), with ``embeds`` and
+        ``enc_embeds`` as ``forward`` takes them.  Each layer, the
+        encoder's too, keeps only its inputs for the backward and runs
+        again there."""
+        enc_out = None
+        if self.cfg.is_encoder_decoder:
+            if enc_embeds is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
+                                 "pass enc_embeds")
+            enc = self.encoder
+            e = enc_embeds.to(device=self.device, dtype=torch.bfloat16)
+            for layer in enc.layers:
+                e = checkpoint(functools.partial(
+                    layer, inv_freq=enc.inv_freq, impl=impl, policy=policy),
+                    e, use_reentrant=False)
+            enc_out = rms_norm(e, enc.final_norm, self.cfg.rms_eps)
+        x = self.embed_tokens(tokens, embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             fn = functools.partial(self._train_layer, layer, impl=impl,
                                    policy=policy)
-            x, a = checkpoint(fn, x, use_reentrant=False)
+            x, a = checkpoint(fn, x, enc_out, use_reentrant=False)
             aux = aux + a
         return self.logits(x), aux
 
-    def _train_layer(self, layer: Layer, x: torch.Tensor, *, impl: str,
+    def _train_layer(self, layer: Layer, x: torch.Tensor,
+                     enc_out: Optional[torch.Tensor], *, impl: str,
                      policy: Optional[ApproxPolicy]):
-        x, r = layer(x, self.inv_freq, impl=impl, policy=policy)
+        x, r = layer(x, self.inv_freq, impl=impl, policy=policy,
+                     enc_out=enc_out)
         if r is None:
             return x, torch.zeros((), dtype=torch.float32, device=x.device)
         return x, moe_aux(r, self.cfg)

@@ -12,7 +12,10 @@ function (it scales the decay by lr, and has no warmup), so it is not
 used.  The JAX package returns new trees from buffers it donates; here
 ``update`` writes the parameters, the moments and the gradients in
 place and returns the same dicts.  The step count is an int32 tensor on
-the parameters' device, so an update never waits for the card.
+the parameters' device, so an update never waits for the card.  The
+update is elementwise, so a tensor of more than ``UPDATE_SLICE``
+elements (a large vocabulary's embedding) is updated slice by slice,
+with the same bits, and its float32 temporaries stay a slice's size.
 """
 
 from __future__ import annotations
@@ -22,7 +25,23 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["AdamW", "clip_by_global_norm"]
+__all__ = ["AdamW", "clip_by_global_norm", "UPDATE_SLICE"]
+
+UPDATE_SLICE = 1 << 26     # elements of one slice of a tensor's update
+
+
+def _slices(p: torch.Tensor, *others: torch.Tensor):
+    """``(p, *others)`` as views of at most ``UPDATE_SLICE`` elements
+    each, in step; the whole tensors where they are no larger or not all
+    contiguous."""
+    ts = (p,) + others
+    n = p.numel()
+    if n <= UPDATE_SLICE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, UPDATE_SLICE):
+        yield tuple(f[i:i + UPDATE_SLICE] for f in flat)
 
 
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor],
@@ -80,16 +99,18 @@ class AdamW:
         b2c = 1.0 - torch.full_like(stepf, self.b2) ** stepf
         m_all, v_all = state["m"], state["v"]
         with torch.no_grad():
-            for k, p in params.items():
-                g32 = grads[k].float()
-                m, v = m_all[k], v_all[k]
-                m_new = self.b1 * m.float() + (1 - self.b1) * g32
-                v_new = self.b2 * v.float() + (1 - self.b2) * g32 * g32
-                delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + self.eps)
-                delta += self.weight_decay * p.float()
-                p.copy_(p.float() - lr * delta)
-                m.copy_(m_new)
-                v.copy_(v_new)
-                del g32, m_new, v_new, delta
+            for k, whole in params.items():
+                for p, g, m, v in _slices(whole, grads[k], m_all[k],
+                                          v_all[k]):
+                    g32 = g.float()
+                    m_new = self.b1 * m.float() + (1 - self.b1) * g32
+                    v_new = self.b2 * v.float() + (1 - self.b2) * g32 * g32
+                    delta = (m_new / b1c) / (torch.sqrt(v_new / b2c)
+                                             + self.eps)
+                    delta += self.weight_decay * p.float()
+                    p.copy_(p.float() - lr * delta)
+                    m.copy_(m_new)
+                    v.copy_(v_new)
+                    del g32, m_new, v_new, delta
         state = {"m": m_all, "v": v_all, "step": step}
         return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -5,9 +5,13 @@ residual carrying): the train step compresses gradients before the
 optimizer and carries the quantization residual in the train state, so
 compression error does not accumulate as bias.
 
-``compressed_psum`` is the JAX package's int8 all-reduce inside
-``shard_map``; its counterpart waits for the port of ``dist/`` (the
-ROADMAP's dist item) and raises until then.
+``compressed_psum`` is the int8 all-reduce of the JAX package's
+``compressed_psum`` (inside ``shard_map``) on a ``torch.distributed``
+process group, in its order: a MAX all-reduce of ``max |x|``, the scale
+that maximum over 127 floored at 1e-12, ``x`` rounded to int8 in
+[-127, 127], a SUM all-reduce of those in int32 (as the JAX package
+sums them: ranks x 127 stays well inside int32), the sum times the
+scale.
 """
 
 from __future__ import annotations
@@ -32,8 +36,18 @@ def ef_quantize(g: torch.Tensor,
     return deq.to(g.dtype), x - deq
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    raise NotImplementedError(
-        "compressed_psum is an int8 all-reduce across a device mesh; it "
-        "waits for the port of dist/ (torch.distributed), which is not "
-        "ported yet")
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8 all-reduce of ``x`` over ``group`` (the default process group
+    when None): the sum over the group's ranks of each rank's ``x``
+    quantized with one scale shared by all ranks, float32.  Every rank
+    gets the same result."""
+    import torch.distributed as dist
+
+    amax = torch.max(torch.abs(x.float())).reshape(1)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+    # accumulate in int32 (ranks * 127 stays well inside int32)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total.to(torch.float32) * scale

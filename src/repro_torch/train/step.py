@@ -52,13 +52,20 @@ def cross_entropy(
 def make_loss_fn(model: Transformer, policy: Optional[ApproxPolicy] = None,
                  *, impl: str = "kernel") -> Callable:
     """``loss_fn(batch) -> (loss, {"ce", "aux"})`` through
-    ``model.forward_train``."""
+    ``model.forward_train``, with the batch's ``embeds`` and
+    ``enc_embeds`` where it holds them; where the logits are longer than
+    the labels (a front end's embeddings come first), the loss is taken
+    on the last ``labels.shape[1]`` positions, the text's."""
     cfg = model.cfg
 
     def loss_fn(batch: Mapping[str, torch.Tensor]):
-        logits, aux = model.forward_train(batch["tokens"], impl=impl,
-                                          policy=policy)
-        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        logits, aux = model.forward_train(
+            batch.get("tokens"), embeds=batch.get("embeds"),
+            enc_embeds=batch.get("enc_embeds"), impl=impl, policy=policy)
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
+        ce = cross_entropy(logits, labels, cfg.vocab_size)
         return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
     return loss_fn
@@ -75,8 +82,9 @@ def _split_micro(x: torch.Tensor, n_micro: int) -> torch.Tensor:
 def _leaf_groups(names, cfg) -> List[List[str]]:
     """The port's parameter names grouped into the JAX package's leaves:
     ``layers.<j>.<rest>`` joins leaf ``layer<j % len(block_pattern)>``
-    of its stacked ``blocks`` tree; the embedding, the final norm and the
-    head are leaves of their own."""
+    of its stacked ``blocks`` tree, ``encoder.layers.<j>.<rest>`` the
+    encoder's leaf ``<rest>``, stacked over its layers; the embedding,
+    the final norms and the head are leaves of their own."""
     period = len(cfg.block_pattern)
     groups: Dict[str, List[str]] = {}
     for name in names:
@@ -85,6 +93,8 @@ def _leaf_groups(names, cfg) -> List[List[str]]:
         if head == "layers":
             j, _, rest = rest.partition(".")
             key = f"layer{int(j) % period}.{rest}"
+        elif name.startswith("encoder.layers."):
+            key = "encoder." + name.split(".", 3)[3]
         groups.setdefault(key, []).append(name)
     return list(groups.values())
 
@@ -106,10 +116,17 @@ def make_train_step(
     n_micro: int = 1,
     policy: Optional[ApproxPolicy] = None,
     compress: bool = False,
+    grad_reduce: Optional[Callable] = None,
 ) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch
     holds ``tokens`` and ``labels``, (B, S) integer tensors on the
-    model's device."""
+    model's device, and an encoder-decoder's ``enc_embeds`` or a front
+    end's ``embeds``, (B, n, d_model), split into micro-batches as the
+    tokens are.  ``grad_reduce``, where given, maps a gradient to its
+    mean over the data-parallel ranks (``launch/cluster.py``) before the
+    optimizer: each parameter's accumulated gradient, or with
+    compression each leaf's error-feedback-quantized gradient, so the
+    residual a rank carries is that of its own gradient."""
     if not model.trainable:
         raise ValueError("the model was not built with trainable=True")
     loss_fn = make_loss_fn(model, policy)
@@ -149,8 +166,12 @@ def make_train_step(
                 deq, new_err = ef_quantize(
                     torch.stack([grads[k] for k in names]),
                     torch.stack([err[k] for k in names]))
+                if grad_reduce is not None:
+                    deq = grad_reduce(deq)
                 for i, k in enumerate(names):
                     grads[k], err[k] = deq[i], new_err[i]
+        elif grad_reduce is not None:
+            grads = {k: grad_reduce(g) for k, g in grads.items()}
 
         _, state["opt"], opt_metrics = opt.update(grads, state["opt"], params)
         for p in params.values():

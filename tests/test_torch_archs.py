@@ -31,6 +31,8 @@ from repro_torch.launch.serve import build_model
 from repro_torch.models import ModelConfig, reduced
 from repro_torch.train.serve import make_decode_step, make_prefill_step
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 TOL = 0.12          # bf16 logits (tests/test_models.py)
 # the load-balance loss summed over the layers: each layer's input
 # differs by bf16 roundings between the packages, so the routers' float32

@@ -22,6 +22,8 @@ from repro_torch.models import Transformer, reduced
 from repro_torch.optim import AdamW
 from repro_torch.train import init_state
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 
 def _tree(seed=0):
     rng = np.random.default_rng(seed)

@@ -1,4 +1,5 @@
-"""The port's DSE loop against the JAX package's, and the port's
+"""The port's DSE helpers against the JAX package's (its ``run_dse``
+fronts are ``tests/test_torch_dse_front.py``'s), and the port's
 isolation: it imports neither JAX nor the JAX package, and its entry
 points refuse to run on a machine without a GPU unless asked for the
 CPU."""
@@ -12,18 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.accel import GaussianFilter as RefGaussian
-from repro.accel import MCMAccelerator as RefMCM
-from repro.core import dse as ref_dse
 from repro.core.acl.library import default_library as ref_library
-from repro.core.nsga2 import NSGA2Config as RefNSGA2Config
 from repro_torch import convert
-from repro_torch.accel import GaussianFilter, HEVCDct, MCMAccelerator
+from repro_torch.accel import GaussianFilter, HEVCDct
 from repro_torch.core import dse
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.features import synth
-from repro_torch.core.hw import V5E
 from repro_torch.core.nsga2 import NSGA2Config
+
+from _torch_threads import bounded_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LIB = default_library()
@@ -31,33 +29,6 @@ RLIB = ref_library()
 
 SMALL = dict(n_train=24, n_qor_samples=2)
 SMALL_NSGA = dict(pop_size=16, n_parents=8, n_generations=2)
-
-
-def _front_identical(accel, ref):
-    """run_dse of the port, labeling on the JAX package's cost model
-    (``hw=V5E``) on the CPU, against the JAX package's run_dse."""
-    labeler = dse.default_labeler(accel, LIB,
-                                  n_qor_samples=SMALL["n_qor_samples"],
-                                  device="cpu", hw=V5E)
-    got = dse.run_dse(accel, LIB,
-                      dse.DSEConfig(**SMALL, nsga=NSGA2Config(**SMALL_NSGA)),
-                      labeler=labeler, device="cpu")
-    want = ref_dse.run_dse(ref, RLIB, ref_dse.DSEConfig(
-        **SMALL, nsga=RefNSGA2Config(**SMALL_NSGA)))
-    assert np.array_equal(got.front_genomes, want.front_genomes)
-    assert got.front_objectives.tobytes() == want.front_objectives.tobytes()
-    assert np.array_equal(got.train_genomes, want.train_genomes)
-    for k in ("qor", "energy"):
-        assert got.train_labels[k].tobytes() == want.train_labels[k].tobytes()
-    assert got.val_pcc == want.val_pcc
-
-
-def test_run_dse_front_identical_to_reference():
-    _front_identical(GaussianFilter(), RefGaussian())
-
-
-def test_run_dse_front_identical_to_reference_mcm2():
-    _front_identical(MCMAccelerator(1), RefMCM(1))
 
 
 def test_label_unique_scatters_back():
@@ -85,6 +56,8 @@ def test_library_arrays_equal_across_packages():
 _ISOLATION = """
 import sys
 sys.path.insert(0, {src!r})
+import torch
+torch.set_num_threads(1)
 import repro_torch
 from repro_torch.core.dse import run_dse, default_labeler
 from repro_torch.core.features.synth import label_variants
@@ -155,6 +128,14 @@ from repro_torch.optim import AdamW, ef_quantize
 train_main(["--arch", "gemma-2b", "--reduced", "--steps", "2", "--batch",
             "2", "--seq", "8", "--n-micro", "2", "--compress", "--ckpt-dir",
             os.path.join(tempfile.mkdtemp(), "ck"), "--device", "cpu"])
+train_main(["--arch", "seamless-m4t-medium", "--reduced", "--steps", "1",
+            "--batch", "2", "--seq", "8", "--device", "cpu"])
+from repro_torch.dist import compat, sharding
+from repro_torch.launch import cluster, mesh, shapes
+shapes.input_specs(get_config("qwen2-vl-72b"), "train_4k",
+                   type("Mesh", (), dict(shape=dict(data=16, model=16)))())
+cluster.main(["--arch", "gemma-2b", "--reduced", "--steps", "2", "--batch",
+              "2", "--seq", "8", "--compress", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LEAKED", bad)
@@ -189,7 +170,9 @@ def test_static_scan_finds_no_reference_imports():
             "train/step.py", "checkpoint/ckpt.py",
             "checkpoint/fault_tolerance.py", "launch/train.py",
             "configs/seamless_m4t_medium.py",
-            "configs/qwen2_vl_72b.py"} <= scanned
+            "configs/qwen2_vl_72b.py", "dist/sharding.py", "dist/compat.py",
+            "launch/mesh.py", "launch/shapes.py",
+            "launch/cluster.py"} <= scanned
     hits = []
     for p in files:
         for m in _FORBIDDEN.finditer(p.read_text()):

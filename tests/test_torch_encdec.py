@@ -10,7 +10,8 @@ differ, so neither draws its own here).  Covered: the encoder
 prefill's last-position logits and 3 decode steps (the cross cache, the
 vision arch's position offset), the state dict's name map, the
 ``LMAccelerator`` on seamless (QoR against the JAX package's, the
-deployment's count), and the training forward's refusal.  Logits are
+deployment's count); training is ``tests/test_torch_train_encdec.py``'s.
+Logits are
 bf16 in both, so they are held to the JAX package's bf16 tolerance
 (0.12, tests/test_models.py)."""
 
@@ -42,6 +43,8 @@ from repro_torch.launch.serve import build_model, serve_batch
 from repro_torch.models import reduced
 from repro_torch.train.serve import (frontend_inputs, make_decode_step,
                                      make_prefill_step)
+
+from _torch_threads import bounded_torch_threads  # noqa: F401
 
 TOL = 0.12          # bf16 logits (tests/test_models.py)
 QOR_TOL_DB = 0.5    # as tests/test_torch_lm_dse.py
@@ -244,12 +247,6 @@ def test_generate_shapes_and_front_end_inputs(pair):
     with pytest.raises(ValueError, match="must be"):
         serve_batch(cfg, prompts=prompts, gen=2, model=model,
                     **{key: extra[key][:, :3, :5]})
-
-
-def test_forward_train_raises(pair):
-    arch, rcfg, params_np, cfg, model = pair
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.forward_train(torch.from_numpy(_tokens(cfg)))
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 RTOL, ATOL = 1e-4, 1e-5     # tests/test_kernels.py, float32 attention
 
 # (b, h, kvh, s, d, causal)
@@ -38,16 +40,6 @@ CASES = {
     "mha4-d64": (1, 4, 4, 33, 64, True),
 }
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only contend
-    with the other test workers' (the file runs faster on one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _inputs(b, h, kvh, s, d, seed=0):
     rng = np.random.default_rng(seed)

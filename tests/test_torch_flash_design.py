@@ -39,6 +39,8 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 # chip_smoke.py's gate for the bf16 backward rows: rtol, and atol as a
 # fraction of the largest element of the plain gradient
 GATE_RTOL, GATE_FRAC = 2 ** -6, 2 ** -7

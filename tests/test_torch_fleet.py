@@ -45,6 +45,8 @@ from repro_torch.service import (
 from repro_torch.service.api import make_server
 from repro_torch.service.store import LABEL_KEYS
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 LIB = default_library()
 

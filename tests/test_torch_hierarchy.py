@@ -40,6 +40,8 @@ from repro_torch.hierarchy import (
 from repro_torch.hierarchy.compose import _combine, compose_qor
 from repro_torch.service import CampaignManager, HierarchicalSpec
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 
 TINY = dict(n_train=8, n_qor_samples=2, pop_size=8, n_parents=4,

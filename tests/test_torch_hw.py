@@ -11,6 +11,8 @@ from repro_torch.core import hw
 from repro_torch.core.acl.library import default_library
 from repro_torch.core.features import synth
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 
 

@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention import (
     kernel_route,
 )
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

@@ -24,6 +24,8 @@ from repro_torch.kernels.population_lut import (
     population_lut_gather_ref,
 )
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

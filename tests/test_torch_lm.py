@@ -25,6 +25,8 @@ from repro_torch.launch.serve import build_model, serve_batch
 from repro_torch.models import ApproxPolicy, reduced
 from repro_torch.train.serve import make_decode_step, make_prefill_step
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 TOL = 0.12          # bf16 logits (tests/test_models.py)
 ARCHS = ["granite-8b", "falcon-mamba-7b"]
 B, S = 2, 24

@@ -31,6 +31,8 @@ from repro_torch.kernels.selective_scan import (
     selective_scan_ref,
 )
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 # tests/test_kernels.py (flash) and tests/test_kernels_scan.py (scan)
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
 SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-5

@@ -24,6 +24,8 @@ from repro_torch._build import SRC_DIR
 from repro_torch.core.acl.library import default_library
 from repro_torch.kernels import approx_matmul as am
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 
 

@@ -36,6 +36,8 @@ from repro_torch.models import reduced
 from repro_torch.models.common import rms_norm
 from repro_torch.models.moe import moe_layer, moe_routing
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 TOL = 0.12          # bf16 (tests/test_models.py)
 # float32 inputs: the expert FFN runs in bf16 in both packages, and the
 # bf16 products agree bit for bit, but XLA's CPU lowering of the bf16

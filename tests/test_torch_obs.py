@@ -14,6 +14,8 @@ import repro_torch.faults as my_faults
 import repro_torch.obs as my_obs
 import repro_torch.segments as my_segments
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 OBS = {"repro": ref_obs, "repro_torch": my_obs}
 FAULTS = {"repro": ref_faults, "repro_torch": my_faults}
 SEGMENTS = {"repro": ref_segments, "repro_torch": my_segments}

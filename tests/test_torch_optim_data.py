@@ -24,12 +24,9 @@ from repro.optim import AdamW as RefAdamW
 from repro.optim import clip_by_global_norm as ref_clip
 from repro.optim import ef_quantize as ref_ef_quantize
 from repro_torch.data import TokenPipeline
-from repro_torch.optim import (
-    AdamW,
-    clip_by_global_norm,
-    compressed_psum,
-    ef_quantize,
-)
+from repro_torch.optim import AdamW, clip_by_global_norm, ef_quantize
+
+from _torch_threads import bounded_torch_threads  # noqa: F401
 
 SHAPES = {"w": (16, 8), "b": (8,), "s": ()}
 CLIPPED_ULPS = 16
@@ -159,11 +156,6 @@ def test_ef_quantize_matches_reference():
     assert deq.dtype == torch.bfloat16 and e.dtype == torch.float32
 
 
-def test_compressed_psum_waits_for_dist():
-    with pytest.raises(NotImplementedError, match="dist"):
-        compressed_psum(torch.ones(4), "pod")
-
-
 @pytest.mark.parametrize("seed,step,rows", [(0, 0, None), (42, 3, None),
                                             (7, 1000, range(2, 5))])
 def test_pipeline_batches_byte_equal_to_reference(seed, step, rows):
@@ -261,3 +253,33 @@ def test_pipeline_learnable_structure():
     t = p.row(0, 0)
     deltas = np.diff(t) % 1000
     assert (deltas == deltas[0]).mean() == 1.0
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_update_by_slices_is_the_same_bits(monkeypatch, moment_dtype):
+    """A tensor larger than ``UPDATE_SLICE`` is updated slice by slice:
+    parameters and moments after three steps equal the whole-tensor
+    update's bit for bit."""
+    from repro_torch.optim import adamw
+
+    rng = np.random.default_rng(3)
+    params = {"w": rng.standard_normal((300, 37)), "b": rng.standard_normal(5)}
+    grads = [{k: rng.standard_normal(v.shape) for k, v in params.items()}
+             for _ in range(3)]
+    out = []
+    for size in (adamw.UPDATE_SLICE, 1000):
+        monkeypatch.setattr(adamw, "UPDATE_SLICE", size)
+        p = {k: torch.tensor(v, dtype=torch.float32)
+             for k, v in params.items()}
+        opt = AdamW(lr=1e-2, warmup_steps=1, moment_dtype=moment_dtype)
+        state = opt.init(p)
+        for g in grads:
+            _, state, _ = opt.update(
+                {k: torch.tensor(v, dtype=torch.float32)
+                 for k, v in g.items()}, state, p)
+        out.append((p, state))
+    (p1, s1), (p2, s2) = out
+    for k in params:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["m"][k], s2["m"][k]), k
+        assert torch.equal(s1["v"][k], s2["v"][k]), k

@@ -29,6 +29,8 @@ from repro_torch.core.acl.library import default_library
 from repro_torch.core.features import pipelines, synth
 from repro_torch.core.hw import V5E
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

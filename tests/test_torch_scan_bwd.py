@@ -42,19 +42,11 @@ from repro_torch.models import Transformer, reduced
 from repro_torch.optim import AdamW
 from repro_torch.train import init_state, make_loss_fn, make_train_step
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 SCAN_TOL, SCAN_WIDE_TOL = 1e-5, 1e-4     # chip_smoke.py's scan gates
 LOG2E = 1.4426950408889634
 GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only contend
-    with the other test workers' (the file runs faster on one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

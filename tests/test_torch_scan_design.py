@@ -29,6 +29,8 @@ from repro_torch.kernels.selective_scan import (
     selective_scan_kernel,
 )
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 # chip_smoke.py's scan gates: tests/test_kernels_scan.py's tolerance at
 # its shapes, 1e-4 over 1024 sequential steps
 SCAN_TOL, SCAN_WIDE_TOL = 1e-5, 1e-4

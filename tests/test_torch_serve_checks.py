@@ -16,6 +16,8 @@ from repro_torch.models import reduced
 from repro_torch.models.common import rms_norm
 from repro_torch.models.moe import moe_routing
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 
 def _load_chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"

@@ -56,6 +56,8 @@ from repro_torch.service import (
 from repro_torch.service import store as store_mod
 from repro_torch.service.store import LABEL_KEYS, STORE_SCHEMA_VERSION
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

@@ -34,6 +34,8 @@ from repro_torch.fleet import HttpError
 from repro_torch.service import CampaignManager
 from repro_torch.service.api import Client, make_server
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SMALL = dict(n_train=10, n_qor_samples=2, pop_size=8, n_parents=4,
              n_generations=2)

@@ -45,6 +45,8 @@ from repro_torch.serving import (
 from repro_torch.serving.engine import DeadlineExceeded, OverloadedError
 from repro_torch.service import CampaignManager, CampaignSpec, make_accelerator
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 SMALL = dict(n_train=10, n_qor_samples=2, pop_size=8, n_parents=4,

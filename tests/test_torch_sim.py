@@ -20,6 +20,8 @@ from repro_torch.core import qor
 from repro_torch.core.acl import multipliers
 from repro_torch.core.acl.library import Circuit, Library, default_library
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

@@ -18,6 +18,8 @@ from repro_torch.core.features import synth
 from repro_torch.hierarchy import Coupling, StagedPipeline, StageView
 from repro_torch.kernels.approx_matmul import from_circuit
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 

@@ -45,6 +45,8 @@ from repro_torch.models import ApproxPolicy, Transformer, reduced
 from repro_torch.optim import AdamW
 from repro_torch.train import init_state, make_loss_fn, make_train_step
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16,
             d_ff=64, vocab_size=128)
 ARCHS = {"gemma": ("gemma-2b", TINY), "moe": ("granite-moe-3b-a800m", {})}
@@ -68,16 +70,6 @@ EF_NORM_RTOL = 0.1       # norm, and each matrix's (measured: <= 5.2e-2)
 PARAM_ATOL = 0.2 * LR    # a parameter "agrees" within a fifth of one step
 PARAM_FRAC = 0.05        # share of elements allowed past PARAM_ATOL
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only contend
-    with the other test workers' (the file runs faster on one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _cfgs(name):
     arch, over = ARCHS[name]

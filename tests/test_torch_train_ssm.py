@@ -51,6 +51,8 @@ from repro_torch.models import Transformer, reduced
 from repro_torch.optim import AdamW
 from repro_torch.train import init_state, make_loss_fn, make_train_step
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 # jamba at one super-block routes every token to each of the reduced
 # config's 4 experts (top-4, a capacity that cannot bind): one bf16
 # rounding of a router input can swap a token's second expert in top-2
@@ -79,14 +81,6 @@ PARAM_FRAC = 0.05
 # a bf16 master agrees within one spacing of bf16 at its magnitude (an
 # AdamW step of lr moves a weight of 0.25 by less than half a spacing)
 BF16_PARAM_ULPS = 1.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(name):

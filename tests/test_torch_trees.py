@@ -13,6 +13,8 @@ from repro.core.surrogates.trees import _best_split as ref_best_split
 from repro_torch.core.surrogates import make
 from repro_torch.core.surrogates.trees import _best_split
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 # (rows, features, kind of X, min_leaf, fraction of features tried)
 SPLIT_CASES = [
     (4, 1, "ternary", 1, None),

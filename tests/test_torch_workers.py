@@ -47,6 +47,8 @@ from repro_torch.service import (
     unregister_accelerator,
 )
 
+from _torch_threads import bounded_torch_threads  # noqa: F401
+
 LIB = default_library()
 RLIB = ref_library()
 
